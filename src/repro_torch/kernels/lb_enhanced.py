@@ -1,0 +1,52 @@
+"""K2 wrapper: cross-block LB_ENHANCED^V on the card
+(csrc/lb_enhanced.cu).
+
+Replaces ``src/repro/kernels/lb_enhanced.py:lb_enhanced_pallas``
+(``_lb_enhanced_kernel``, ``_lb_enhanced_kernel_live``).  The cascade's
+``bands`` tier runs it with ``bands_only=True``: 4 bytes written and ~130
+FP32 operations per pair at V = 4, so it is operation-bound, and the
+design gives each (query, candidate) its own thread reading only the
+first and last ``nb`` columns.  The full form (the ``enhanced_dense``
+tier) adds the Keogh bridge, with the query and envelope tiles staged
+through shared memory.  ``live`` (``(C,)``) turns dead candidates into
+``-inf`` columns; an all-dead tile of 32 candidates skips its compute.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.lower_bounds import _n_bands
+from repro_torch.kernels import _build
+from repro_torch.kernels._launch import cuda_f32, live_bytes, stream_ptr
+
+Tensor = torch.Tensor
+
+
+def lb_enhanced_cuda(q: Tensor, c: Tensor, u: Tensor, lo: Tensor, w: int,
+                     v: int, *, live: Tensor | None = None,
+                     bands_only: bool = False) -> Tensor:
+    """``(Q, L) x (C, L) -> (Q, C)`` on the card."""
+    if q.dim() != 2 or c.dim() != 2:
+        raise ValueError("q, c: expected (Q, L) and (C, L)")
+    Q, L = q.shape
+    C = c.shape[0]
+    cuda_f32("q", q)
+    cuda_f32("c", c, (C, L), q.device)
+    if not bands_only:
+        cuda_f32("u", u, (C, L), q.device)
+        cuda_f32("lo", lo, (C, L), q.device)
+    nb = _n_bands(L, w, v)
+    lv = live_bytes(live, C, q.device)
+    out = torch.empty((Q, C), dtype=q.dtype, device=q.device)
+    if Q == 0 or C == 0:
+        return out
+    lib = _build.library()
+    _build.check(lib.lb_enhanced_launch(
+        q.data_ptr(), c.data_ptr(),
+        None if bands_only else u.data_ptr(),
+        None if bands_only else lo.data_ptr(),
+        None if lv is None else lv.data_ptr(), out.data_ptr(),
+        Q, C, L, nb, int(bands_only), stream_ptr(q.device)), "lb_enhanced")
+    _build.COUNTS["lb_enhanced"] += 1
+    return out

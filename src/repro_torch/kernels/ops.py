@@ -1,0 +1,84 @@
+"""Public kernel entry points, dispatched on the tensor's device (port of
+``repro.kernels.ops``).
+
+On a CPU tensor each op runs its kernel's plain PyTorch version
+(``kernels/ref.py``); on a CUDA tensor it launches the hand-written
+kernel, or raises when the kernel does not take the arguments.  There is
+no fallback from the card to the plain version.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.dtw_band import dtw_band_cuda
+from repro_torch.kernels.envelope import envelope_cuda
+from repro_torch.kernels.lb_enhanced import lb_enhanced_cuda
+from repro_torch.kernels.lb_enhanced_pairwise import lb_enhanced_pairwise_cuda
+from repro_torch.kernels.tiling import apply_pair_perm
+
+Tensor = torch.Tensor
+
+
+def _on_card(x: Tensor) -> bool:
+    """``True`` for a CUDA tensor, ``False`` for a CPU one; anything else
+    has neither route."""
+    if x.device.type == "cuda":
+        return True
+    if x.device.type == "cpu":
+        return False
+    raise RuntimeError(f"no kernel route for a tensor on {x.device}")
+
+
+def envelope_op(b: Tensor, w: int) -> tuple[Tensor, Tensor]:
+    """Sakoe-Chiba envelopes ``(N, L) -> (U, Lo)``; a ``(L,)`` series gives
+    ``(L,)`` envelopes."""
+    squeeze = b.dim() == 1
+    if squeeze:
+        b = b[None]
+    if _on_card(b):
+        u, lo = envelope_cuda(b, w)
+    else:
+        u, lo = ref.envelope_ref(b, w)
+    return (u[0], lo[0]) if squeeze else (u, lo)
+
+
+def lb_enhanced_op(q: Tensor, c: Tensor, u: Tensor, lo: Tensor, w: int,
+                   v: int, *, live: Tensor | None = None,
+                   bands_only: bool = False) -> Tensor:
+    """``(Q, L) x (C, L) -> (Q, C)`` LB_ENHANCED^V (or its bands-only
+    tier); ``live`` (``(C,)``) gives dead candidates ``-inf``."""
+    fn = lb_enhanced_cuda if _on_card(q) else ref.lb_enhanced_ref
+    return fn(q, c, u, lo, w, v, live=live, bands_only=bands_only)
+
+
+def lb_enhanced_pairwise_op(q: Tensor, c: Tensor, u: Tensor, lo: Tensor,
+                            w: int, v: int, *, live: Tensor | None = None,
+                            bands_only: bool = False) -> Tensor:
+    """``(P, L) x (P, L) -> (P,)`` pairwise LB_ENHANCED^V over packed
+    survivor rows; ``live`` (``(P,)``) gives dead slots ``-inf``."""
+    fn = (lb_enhanced_pairwise_cuda if _on_card(q)
+          else ref.lb_enhanced_pairwise_ref)
+    return fn(q, c, u, lo, w, v, live=live, bands_only=bands_only)
+
+
+def dtw_band_op(a: Tensor, b: Tensor, w: int | None = None, cutoff=None,
+                *, perm: Tensor | None = None,
+                tile_p: int | None = None) -> Tensor:
+    """Pairwise banded DTW ``(P, L) x (P, L) -> (P,)``.
+
+    ``cutoff`` (scalar or ``(P,)``): pairs whose frontier minimum passes
+    it at a row-block boundary return ``+inf``; below it values are
+    exact.  ``perm`` gathers the pairs into that order before the call
+    and scatters the results back (no effect on results).  ``tile_p`` is
+    the JAX kernel's pair-tile cap; this kernel runs one block per pair,
+    so it is accepted and ignored.
+    """
+    del tile_p
+    if perm is not None:
+        return apply_pair_perm(lambda x, y, c: dtw_band_op(x, y, w, c),
+                               perm, a, b, cutoff)
+    if _on_card(a):
+        return dtw_band_cuda(a, b, w, cutoff)
+    return ref.dtw_band_ref(a, b, w, cutoff)
