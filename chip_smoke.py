@@ -5,23 +5,40 @@
     python3 chip_smoke.py --profile  # also profile one warm nn_search
 
 1. prints the card (``nvidia-smi`` name and power limit) and builds the
-   four CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``, ``sm_90a``);
+   six CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``, ``sm_90a``,
+   one process per source);
 2. drives the main path once at full size -- ``build_index`` ->
-   ``classify`` (which runs ``nn_search``) on N = 16384 store series of
-   length L = 512 (w = 51, V = 4, k = 1, Q = 256 queries) -- with every
-   kernel's launch count set to 0 just before and read just after, and
-   records the inputs each kernel was given there;
-3. holds each kernel against its plain PyTorch version on the card: at
-   the main path's recorded inputs (timed with CUDA events) and over a
-   sweep of small shapes (w in {0, 1, L/4, L}, odd L, cutoffs that kill
-   pairs, ``live`` masks with all-dead tiles, ragged sizes).  Envelopes,
-   banded DTW and the bands-only LB_ENHANCED must be bit-equal, with the
-   same +-inf positions; the full LB_ENHANCED forms agree to
-   rtol 1e-5, atol 1e-6 (their L-term sums run in another order);
-4. checks the search: finite distances, neighbour ids equal to the
+   ``classify`` (which runs ``nn_search``, guards on by default) on
+   N = 16384 store series of length L = 512 (w = 51, V = 4, k = 1,
+   Q = 256 queries) -- with every kernel's launch count set to 0 just
+   before and read just after, and records the inputs each kernel was
+   given there;
+3. checks the search: finite distances, neighbour ids equal to the
    kernel brute force for the first 64 queries and to a brute force
    through the plain DTW for the first 8, distances bit-equal;
-5. prints one ``{"kernels": [...]}`` line and, last, the device line
+4. drives the sketch path: ``build_index(sketch=16, calibrate=cfg,
+   mask=True)`` -> ``classify`` -> a warm ``nn_search`` with
+   ``cfg = EngineConfig(CascadeConfig(w=51, use_sketch=True),
+   auto_plan=True)`` on N = 65536 store series (L = 512, Q = 256), counts
+   set to 0 before the build and read after ``classify``; checks that
+   K1-K4 and K7 ran, ids equal the kernel brute force on 32 queries with
+   distances bit-equal, and no guard tripped on either path (every
+   violation counter 0, ``degraded`` 0, no ``GuardWarning``);
+5. guard phase: ``faults.corrupt_dtw(scale=0.05)`` on 4 queries of the
+   main-path store, first through the main path's own index (w = 51),
+   where it prints the guards' verdict and the LB / DTW ratios that
+   explain it, then through the store indexed at w = 0, where it must
+   raise a ``GuardWarning``, trip admissibility, degrade once, and still
+   return the brute-force neighbours (see ``guard_phase``);
+6. holds each kernel against its plain PyTorch version on the card: at
+   the paths' recorded inputs (timed with CUDA events) and over a sweep of
+   small shapes (w in {0, 1, L/4, L}, odd L, cutoffs that kill pairs,
+   ``live`` masks with all-dead tiles, ragged sizes).  Envelopes, banded
+   DTW, the bands-only LB_ENHANCED and the sketch bound must be
+   bit-equal, with the same +-inf positions; the full LB_ENHANCED forms
+   and LB_Keogh agree to rtol 1e-5, atol 1e-6 (their L-term sums run in
+   another order);
+7. prints one ``{"kernels": [...]}`` line and, last, the device line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line.  The script imports
@@ -30,10 +47,12 @@ nothing of the JAX package; without a CUDA device it exits 1.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -48,6 +67,11 @@ PEAK_FP32 = 67e12
 # its two envelopes, the scale of the largest UCR training sets
 MAIN = dict(n_classes=8, n_train_per_class=2048, n_test_per_class=32,
             length=512, seed=7)
+# sketch-path store: 65536 series (~400 MB of f32 with the envelopes, a
+# 2 MB int8 sketch), the scale at which the sketch tier and the store
+# mask pay
+SKETCH = dict(n_classes=8, n_train_per_class=8192, n_test_per_class=32,
+              length=512, seed=7)
 V = 4
 K = 1
 VERIFY_CHUNK = 32
@@ -158,27 +182,32 @@ def run_main_path(torch, dev):
     recs = {n: Recorder(ops, n) for n in
             ("envelope_cuda", "lb_enhanced_cuda",
              "lb_enhanced_pairwise_cuda", "dtw_band_cuda")}
-    torch.cuda.synchronize()
-    _build.reset_counts()
-    t0 = time.perf_counter()
-    index = build_index(ds.x_train, w, ds.y_train, device=dev)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    pred, res = classify(index, ds.x_test, cfg)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    launches = _build.counts()
-    for r in recs.values():
-        r.restore()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.synchronize()
+        _build.reset_counts()
+        t0 = time.perf_counter()
+        index = build_index(ds.x_train, w, ds.y_train, device=dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        pred, res = classify(index, ds.x_test, cfg)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = _build.counts()
+        for r in recs.values():
+            r.restore()
 
-    # steady state: the same search again (survivor budget memoised)
-    t3 = time.perf_counter()
-    res2 = nn_search(index, ds.x_test, cfg)
-    torch.cuda.synchronize()
-    t4 = time.perf_counter()
+        # steady state: the same search again (survivor budget memoised)
+        t3 = time.perf_counter()
+        res2, guard = nn_search(index, ds.x_test, cfg, with_guards=True)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+    check_no_guard_trip("main path", caught, guard)
     check(torch.equal(res2.idx, res.idx) and torch.equal(res2.dists,
                                                          res.dists),
           "a repeated nn_search gave another result")
+
+    cost = guard_cost(torch, index, ds.x_test, cfg)
 
     y = torch.as_tensor(ds.y_test, device=dev)
     acc = (pred.long() == y.long()).float().mean().item()
@@ -191,9 +220,208 @@ def run_main_path(torch, dev):
         "mean_n_dtw": n_dtw.mean().item(),
         "pruning_power": res.pruning_power().mean().item(),
         "accuracy": acc, "launches": launches,
+        "guards": guard.summary(), "warm_search_guards": cost,
     }
     print("main path: " + json.dumps(summary))
     return ds, index, cfg, res, launches, recs
+
+
+def guard_cost(torch, index, queries, cfg, reps: int = 2) -> dict:
+    """Warm ``nn_search`` wall seconds with the config's guards (on by
+    default) and with ``GuardConfig(enabled=False)``, in the order on,
+    off, off, on repeated ``reps`` times so drift falls on both; the two
+    must return the same result."""
+    from repro_torch.search import GuardConfig, nn_search
+
+    cfgs = {"on": cfg,
+            "off": dataclasses.replace(cfg, guards=GuardConfig(enabled=False))}
+    secs = {"on": [], "off": []}
+    res = {}
+    for mode in ("on", "off", "off", "on") * reps:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res[mode] = nn_search(index, queries, cfgs[mode])
+        torch.cuda.synchronize()
+        secs[mode].append(time.perf_counter() - t0)
+    check(torch.equal(res["on"].idx, res["off"].idx)
+          and torch.equal(res["on"].dists, res["off"].dists)
+          and torch.equal(res["on"].n_dtw, res["off"].n_dtw),
+          "guards on and off gave different results")
+    med = {m: sorted(v)[len(v) // 2] for m, v in secs.items()}
+    return {"guards_on_s": secs["on"], "guards_off_s": secs["off"],
+            "guards_on_median_s": med["on"], "guards_off_median_s": med["off"],
+            "guards_cost_median_s": med["on"] - med["off"]}
+
+
+def check_no_guard_trip(path: str, caught, guard) -> None:
+    """No ``GuardWarning`` during the path, and every violation counter
+    and the degradation count of its warm search at 0."""
+    from repro_torch.search import GuardWarning
+
+    trips = [str(c.message) for c in caught
+             if issubclass(c.category, GuardWarning)]
+    check(not trips, f"{path}: a guard warned: {trips[:2]}")
+    g = guard.values()
+    for f in ("admiss_viol", "conserve_viol", "account_viol",
+              "nonfinite_bounds", "nonfinite_dtw", "degraded"):
+        check(g[f] == 0.0, f"{path}: guard counter {f} = {g[f]}")
+    check(g["admiss_checked"] > 0 and g["account_checked"] > 0,
+          f"{path}: the guards checked nothing")
+
+
+def run_sketch_path(torch, dev):
+    """build_index(sketch=16, calibrate=cfg, mask=True) -> classify, counts
+    set to 0 before the build and read after classify, then a warm
+    nn_search; checks and prints the ``sketch path:`` line."""
+    from repro_torch.data import make_dataset
+    from repro_torch.kernels import _build
+    from repro_torch.search import (CascadeConfig, EngineConfig,
+                                    brute_force, build_index, classify,
+                                    nn_search)
+
+    ds = make_dataset(**SKETCH)
+    L = ds.length
+    w = int(0.1 * L)
+    cfg = EngineConfig(cascade=CascadeConfig(w=w, v=V, use_sketch=True),
+                       verify_chunk=VERIFY_CHUNK, k=K, auto_plan=True)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.synchronize()
+        _build.reset_counts()
+        t0 = time.perf_counter()
+        index = build_index(ds.x_train, w, ds.y_train, device=dev,
+                            sketch=16, calibrate=cfg, mask=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        pred, res = classify(index, ds.x_test, cfg)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = _build.counts()
+        t3 = time.perf_counter()
+        res2, stats = nn_search(index, ds.x_test, cfg, with_stats=True)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+    check_no_guard_trip("sketch path", caught, stats.guards)
+    check(not stats.degraded, "sketch path: the warm search degraded")
+    for kname in ("envelope", "lb_enhanced", "lb_enhanced_pairwise",
+                  "dtw_band", "sketch_bound"):
+        check(launches[kname] > 0,
+              f"kernel {kname} was not launched on the sketch path")
+    check(torch.equal(res2.idx, res.idx) and torch.equal(res2.dists,
+                                                         res.dists),
+          "sketch path: a repeated nn_search gave another result")
+    check(torch.isfinite(res.dists).all().item(), "sketch path: non-finite "
+          "distances")
+    cost = guard_cost(torch, index, ds.x_test, cfg)
+    t5 = time.perf_counter()
+    bd, bi = brute_force(index, ds.x_test[:32], w, k=K)
+    torch.cuda.synchronize()
+    t6 = time.perf_counter()
+    check(torch.equal(bi, res.idx[:32]),
+          "sketch path: ids differ from the kernel brute force")
+    check(torch.equal(bd, res.dists[:32]),
+          "sketch path: distances not bit-equal to the kernel brute force")
+    y = torch.as_tensor(ds.y_test, device=dev)
+    summary = {
+        "N": index.n, "L": L, "w": w, "v": V, "k": K, "Q": len(ds.x_test),
+        "verify_chunk": VERIFY_CHUNK, "sketch_S": index.sk_lo.shape[1],
+        "build_index_s": t1 - t0, "classify_s": t2 - t1,
+        "nn_search_warm_s": t4 - t3,
+        "mean_n_dtw": res.n_dtw.float().mean().item(),
+        "pruning_power": res.pruning_power().mean().item(),
+        "accuracy": (pred.long() == y.long()).float().mean().item(),
+        "plan": list(stats.plan_tiers), "dropped": list(stats.dropped),
+        "budget": stats.budget, "limit": stats.limit,
+        "live_fraction": index.live.float().mean().item(),
+        "launches": launches, "guards": stats.guards.summary(),
+        "warm_search_guards": cost,
+        "brute_force_32_queries_s": t6 - t5,
+    }
+    print("sketch path: " + json.dumps(summary))
+    return ds, index, cfg, launches
+
+
+def guard_phase(torch, ds, main_index, main_cfg, dev) -> None:
+    """A corrupted DTW route (``faults.corrupt_dtw(scale=0.05)``) on 4
+    queries of the main-path store.
+
+    First on the main path's own index and config (w = 51): the shrunk
+    seed DTW becomes every later pair's cutoff, those pairs abandon and
+    return +inf, which admissibility cannot compare, so the seeds are its
+    only samples, and it trips only where a seed's bound exceeds 5 % of
+    its true DTW.  The phase prints that run's guard report and, as the
+    reading that explains it, the ratio LB_ENHANCED / DTW at the pairs it
+    returned (the seeds, when it does not trip) and over all 4 x N pairs.
+    A trip there must degrade and stay exact; no trip is the guards'
+    blind spot, which the JAX engine shares (tests/test_torch_guards.py).
+
+
+    Then on the same store indexed at w = 0, where the bound equals the
+    DTW (squared Euclidean distance) and any shrink shows: the guard must
+    warn, trip admissibility, degrade once and return the brute-force
+    neighbours."""
+    from repro_torch.kernels import ops
+    from repro_torch.search import (CascadeConfig, EngineConfig,
+                                    GuardWarning, brute_force, build_index,
+                                    nn_search)
+    from repro_torch.testing import faults
+
+    scale = 0.05
+    q = ds.x_test[:4]
+    qt = torch.as_tensor(q, dtype=torch.float32, device=dev)
+    readings = {}
+    for label, index, cfg in (
+            ("main_index", main_index, main_cfg),
+            ("w0", build_index(ds.x_train, 0, ds.y_train, device=dev),
+             EngineConfig(cascade=CascadeConfig(w=0, v=V),
+                          verify_chunk=VERIFY_CHUNK, k=K))):
+        w = cfg.cascade.w
+        bd, bi = brute_force(index, q, w, k=K)
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            with faults.corrupt_dtw(scale=scale):
+                got, guard = nn_search(index, q, cfg, with_guards=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        n_warn = sum(issubclass(c.category, GuardWarning) for c in caught)
+        tripped = "admiss_viol" in guard.tripped()
+        # LB_ENHANCED^V (the tightest tier) over the true DTW, all pairs
+        N = index.n
+        lbm = ops.lb_enhanced_op(qt, index.series, index.upper, index.lower,
+                                 w, V)
+        dtw = ops.dtw_band_op(qt.repeat_interleave(N, dim=0),
+                              index.series.repeat(len(q), 1), w
+                              ).reshape(len(q), N)
+        ratio = lbm / dtw
+        at_ret = ratio.gather(1, got.idx.long())
+        reading = {
+            "w": w, "warnings": n_warn, "tripped": list(guard.tripped()),
+            "summary": guard.summary(), "seconds": t1 - t0,
+            "n_dtw": got.n_dtw.tolist(),
+            "lb_over_dtw_at_returned": at_ret.flatten().tolist(),
+            "lb_over_dtw_all_pairs_median": ratio.median().item(),
+            "share_of_pairs_above_scale":
+                (ratio > scale).float().mean().item()}
+        if tripped:
+            check(n_warn >= 1, f"guard phase {label}: a trip without a "
+                  "GuardWarning")
+            check(guard.values()["degraded"] == 1.0,
+                  f"guard phase {label}: degraded != 1")
+            check(torch.equal(got.idx, bi) and torch.equal(got.dists, bd),
+                  f"guard phase {label}: the degraded batch is not the "
+                  "brute-force result")
+        else:
+            check(n_warn == 0 and guard.values()["degraded"] == 0.0,
+                  f"guard phase {label}: degraded without a trip")
+            reading["dists_over_brute_force"] = (got.dists / bd
+                                                 ).flatten().tolist()
+        readings[label] = reading
+    check("admiss_viol" in readings["w0"]["tripped"],
+          f"guard phase: admissibility did not trip at w = 0 "
+          f"({readings['w0']['summary']})")
+    print("guard phase: " + json.dumps({"queries": len(q), "scale": scale,
+                                        **readings}))
 
 
 def check_search(torch, ds, index, cfg, res):
@@ -226,7 +454,7 @@ def check_search(torch, ds, index, cfg, res):
           f"{t2 - t1:.3f} s)")
 
 
-def profile_search(torch, ds, index, cfg) -> None:
+def profile_search(torch, ds, index, cfg, label: str) -> None:
     """``--profile``: one warm ``nn_search`` under ``torch.profiler``;
     prints the wall time, the summed device time of every kernel (the
     device's busy time: one stream, so launches do not overlap) and the
@@ -250,7 +478,7 @@ def profile_search(torch, ds, index, cfg) -> None:
             rows.append((e.key[:60], e.count, us / 1e3))
     rows.sort(key=lambda r: -r[2])
     busy = sum(r[2] for r in rows) / 1e3
-    print("profile (warm nn_search, profiled): " + json.dumps({
+    print(f"profile ({label}, warm nn_search, profiled): " + json.dumps({
         "wall_s": wall, "device_busy_s": busy,
         "idle_share": 1.0 - busy / wall,
         "top_kernels_name_count_ms": rows[:12]}))
@@ -276,9 +504,12 @@ def band_ops(nb: int) -> int:
     return 4 * nb * nb + 2 * nb - 1
 
 
-def kernel_phases(torch, dev, recs, launches):
-    """Each kernel against its plain version at the main path's inputs
-    (timed) and over a small sweep.  Returns the ``kernels`` records."""
+def kernel_phases(torch, dev, recs, launches, sk_index, sk_queries,
+                  sk_launches, main_idx, main_queries):
+    """Each kernel against its plain version at the paths' inputs (timed)
+    and over a small sweep.  Returns the ``kernels`` records; a kernel's
+    ``main_path_launches`` and ``sketch_path_launches`` are its counts in
+    each path's window, ``launches`` their sum."""
     import torch.nn.functional as F
 
     from repro_torch.core.lower_bounds import _n_bands
@@ -288,6 +519,14 @@ def kernel_phases(torch, dev, recs, launches):
     from repro_torch.kernels.lb_enhanced import lb_enhanced_cuda
     from repro_torch.kernels.lb_enhanced_pairwise import (
         lb_enhanced_pairwise_cuda)
+    from repro_torch.kernels.lb_keogh import lb_keogh_cuda
+    from repro_torch.kernels.sketch import sketch_bound_cuda
+
+    def path_launches(kname: str) -> dict:
+        # each path's own reset-and-read window, and their sum
+        return dict(launches=launches[kname] + sk_launches[kname],
+                    main_path_launches=launches[kname],
+                    sketch_path_launches=sk_launches[kname])
 
     gen = torch.Generator(device="cpu").manual_seed(11)
 
@@ -311,7 +550,7 @@ def kernel_phases(torch, dev, recs, launches):
     out.append(dict(
         name="envelope", route="cuda", source="src/repro_torch/csrc/envelope.cu",
         replaces="src/repro/kernels/envelope.py:72",
-        launches=launches["envelope"], max_abs_err=err,
+        **path_launches("envelope"), max_abs_err=err,
         ms=time_ms(lambda: envelope_cuda(b, w), 20),
         plain_ms=time_ms(lambda: ref.envelope_ref(b, w), 5),
         bound_ms=bms, bound_by=by,
@@ -355,7 +594,7 @@ def kernel_phases(torch, dev, recs, launches):
         name="lb_enhanced", route="cuda",
         source="src/repro_torch/csrc/lb_enhanced.cu",
         replaces="src/repro/kernels/lb_enhanced.py:132",
-        launches=launches["lb_enhanced"], max_abs_err=err,
+        **path_launches("lb_enhanced"), max_abs_err=err,
         ms=time_ms(lambda: lb_enhanced_cuda(*args, **kw), 50),
         plain_ms=time_ms(lambda: ref.lb_enhanced_ref(*args, **kw), 5),
         bound_ms=bms, bound_by=by, library_ms=None,
@@ -400,7 +639,7 @@ def kernel_phases(torch, dev, recs, launches):
         name="lb_enhanced_pairwise", route="cuda",
         source="src/repro_torch/csrc/lb_enhanced_pairwise.cu",
         replaces="src/repro/kernels/lb_enhanced_pairwise.py:122",
-        launches=launches["lb_enhanced_pairwise"], max_abs_err=err,
+        **path_launches("lb_enhanced_pairwise"), max_abs_err=err,
         ms=time_ms(lambda: lb_enhanced_pairwise_cuda(*args, **kw), 20),
         plain_ms=time_ms(lambda: ref.lb_enhanced_pairwise_ref(*args, **kw),
                          3),
@@ -429,12 +668,83 @@ def kernel_phases(torch, dev, recs, launches):
     out.append(dict(
         name="dtw_band", route="cuda", source="src/repro_torch/csrc/dtw_band.cu",
         replaces="src/repro/kernels/dtw_band.py:323",
-        launches=launches["dtw_band"], max_abs_err=max(err, err_cut),
+        **path_launches("dtw_band"), max_abs_err=max(err, err_cut),
         ms=time_ms(lambda: dtw_band_cuda(a, bb, w4), 20),
         plain_ms=time_ms(lambda: ref.dtw_band_ref(a, bb, w4), 2, warmup=1),
         bound_ms=bms, bound_by=by, library_ms=None,
         shape=f"P={P} L={L} w={w4} no cutoff",
         round_cutoffs_ms=time_ms(lambda: dtw_band_cuda(a, bb, w4, cut), 20)))
+
+    # ---- K7 sketch bound (tier -1 of the sketch path) ---------------------
+    # all Q = 256 sketch-path queries against the path's sketch store
+    from repro_torch.search.index import (sketch_query_means,
+                                          sketch_segment_sizes)
+
+    sk_lo, sk_hi = sk_index.sk_lo, sk_index.sk_hi
+    S = sk_lo.shape[1]
+    qbar = sketch_query_means(torch.as_tensor(sk_queries, device=dev), S)
+    qs, wseg = ref.sketch_operands(qbar, sk_index.sk_scale,
+                                   sketch_segment_sizes(sk_index.length, S,
+                                                        device=dev))
+    Q, S = qs.shape
+    N = sk_lo.shape[0]
+    err = compare("sketch_bound", sketch_bound_cuda(qs, sk_lo, sk_hi, wseg),
+                  ref.sketch_bound_scaled(qs, sk_lo, sk_hi, wseg),
+                  exact=True)
+    for Qs, Ns, Ss in [(3, 37, 16), (33, 200, 16), (5, 129, 7), (1, 1, 1),
+                       (70, 65, 40), (2, 300, 256)]:
+        qx = randn(Qs, Ss) * 60
+        lx = torch.randint(-127, 100, (Ns, Ss), generator=gen,
+                           dtype=torch.int8).to(dev)
+        hx = torch.clamp(lx.int() + torch.randint(0, 40, (Ns, Ss),
+                                                  generator=gen).to(dev),
+                         max=127).to(torch.int8)
+        wx = torch.rand(Ss, generator=gen).to(dev) * 0.3
+        compare(f"sketch_bound sweep {(Qs, Ns, Ss)}",
+                sketch_bound_cuda(qx, lx, hx, wx),
+                ref.sketch_bound_scaled(qx, lx, hx, wx), exact=True)
+    # per (q, n, j): two subtracts, two maxes, two multiplies, one add
+    bms, by = bound(4.0 * Q * S + 2.0 * N * S + 4.0 * S + 4.0 * Q * N,
+                    7.0 * Q * N * S)
+    out.append(dict(
+        name="sketch_bound", route="cuda",
+        source="src/repro_torch/csrc/sketch.cu",
+        replaces="src/repro/kernels/sketch.py:68",
+        **path_launches("sketch_bound"), max_abs_err=err,
+        ms=time_ms(lambda: sketch_bound_cuda(qs, sk_lo, sk_hi, wseg), 50),
+        plain_ms=time_ms(lambda: ref.sketch_bound_scaled(qs, sk_lo, sk_hi,
+                                                         wseg), 5),
+        bound_ms=bms, bound_by=by, library_ms=None,
+        shape=f"Q={Q} N={N} S={S}"))
+
+    # ---- K8 LB_Keogh (no search path; main-path envelopes) ----------------
+    qk = torch.as_tensor(main_queries, dtype=torch.float32, device=dev)
+    uk, lk = main_idx.upper, main_idx.lower
+    Q, L = qk.shape
+    C = uk.shape[0]
+    err = compare("lb_keogh", lb_keogh_cuda(qk, uk, lk),
+                  ref.lb_keogh_ref(qk, uk, lk), exact=False)
+    for Qs, Cs, Ls, ws in [(3, 37, 33, 8), (9, 70, 64, 1), (33, 31, 100, 0),
+                           (2, 65, 9, 9), (40, 600, 512, 51)]:
+        qx, cx = randn(Qs, Ls), randn(Cs, Ls)
+        ux, lx = ref.envelope_ref(cx, ws)
+        compare(f"lb_keogh sweep {(Qs, Cs, Ls, ws)}",
+                lb_keogh_cuda(qx, ux, lx), ref.lb_keogh_ref(qx, ux, lx),
+                exact=False)
+    # per (q, c, i): two subtracts, two maxes and one fused multiply-add
+    # (two operations) that squares the excess into the sum: at most one
+    # of q - u and lo - q is positive, so one square serves both
+    bms, by = bound(4.0 * Q * L + 8.0 * C * L + 4.0 * Q * C,
+                    6.0 * Q * C * L)
+    out.append(dict(
+        name="lb_keogh", route="cuda",
+        source="src/repro_torch/csrc/lb_keogh.cu",
+        replaces="src/repro/kernels/lb_keogh.py:48",
+        **path_launches("lb_keogh"), max_abs_err=err,
+        ms=time_ms(lambda: lb_keogh_cuda(qk, uk, lk), 20),
+        plain_ms=time_ms(lambda: ref.lb_keogh_ref(qk, uk, lk), 3),
+        bound_ms=bms, bound_by=by, library_ms=None,
+        shape=f"Q={Q} C={C} L={L} w={main_idx.w}"))
     return out
 
 
@@ -470,12 +780,19 @@ def main() -> int:
               f"{lib_path.name}")
         dev = torch.device("cuda:0")
         ds, index, cfg, res, launches, recs = run_main_path(torch, dev)
-        for kname, n in launches.items():
-            check(n > 0, f"kernel {kname} was not launched on the main path")
+        for kname in ("envelope", "lb_enhanced", "lb_enhanced_pairwise",
+                      "dtw_band"):
+            check(launches[kname] > 0,
+                  f"kernel {kname} was not launched on the main path")
         check_search(torch, ds, index, cfg, res)
+        sk_ds, sk_index, sk_cfg, sk_launches = run_sketch_path(torch, dev)
+        guard_phase(torch, ds, index, cfg, dev)
         if "--profile" in sys.argv[1:]:
-            profile_search(torch, ds, index, cfg)
-        kernels = kernel_phases(torch, dev, recs, launches)
+            profile_search(torch, ds, index, cfg, "main path")
+            profile_search(torch, sk_ds, sk_index, sk_cfg, "sketch path")
+        kernels = kernel_phases(torch, dev, recs, launches, sk_index,
+                                sk_ds.x_test, sk_launches, index, ds.x_test)
+        del sk_index
         torch.cuda.synchronize()
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)

@@ -41,6 +41,9 @@ _SIGNATURES = {
                                      _P], _I),
     "dtw_band_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
     "dtw_band_smem_bytes": ([_I], ctypes.c_longlong),
+    "sketch_bound_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
+    "sketch_bound_smem_bytes": ([_I], ctypes.c_longlong),
+    "lb_keogh_launch": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
     "rt_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -132,7 +135,8 @@ def check(rc: int, what: str) -> None:
 # Launches of each kernel: its wrapper adds one per launch, nowhere else,
 # so a run can show that a path went through the kernel.
 COUNTS: dict[str, int] = dict.fromkeys(
-    ("envelope", "lb_enhanced", "lb_enhanced_pairwise", "dtw_band"), 0)
+    ("envelope", "lb_enhanced", "lb_enhanced_pairwise", "dtw_band",
+     "sketch_bound", "lb_keogh"), 0)
 
 
 def reset_counts() -> None:

@@ -16,6 +16,8 @@ from repro_torch.kernels.dtw_band import dtw_band_cuda
 from repro_torch.kernels.envelope import envelope_cuda
 from repro_torch.kernels.lb_enhanced import lb_enhanced_cuda
 from repro_torch.kernels.lb_enhanced_pairwise import lb_enhanced_pairwise_cuda
+from repro_torch.kernels.lb_keogh import lb_keogh_cuda
+from repro_torch.kernels.sketch import sketch_bound_cuda
 from repro_torch.kernels.tiling import apply_pair_perm
 
 Tensor = torch.Tensor
@@ -42,6 +44,23 @@ def envelope_op(b: Tensor, w: int) -> tuple[Tensor, Tensor]:
     else:
         u, lo = ref.envelope_ref(b, w)
     return (u[0], lo[0]) if squeeze else (u, lo)
+
+
+def lb_keogh_op(q: Tensor, u: Tensor, lo: Tensor) -> Tensor:
+    """``(Q, L) x (C, L)`` envelopes ``-> (Q, C)`` LB_KEOGH matrix."""
+    fn = lb_keogh_cuda if _on_card(q) else ref.lb_keogh_ref
+    return fn(q, u, lo)
+
+
+def sketch_bound_op(qbar: Tensor, sk_lo: Tensor, sk_hi: Tensor, sk_scale,
+                    seg_sizes) -> Tensor:
+    """``(Q, S) f32 x (N, S) int8 -> (Q, N)`` tier-(-1) sketch bounds
+    (search/index.py documents the store).  The operands are rewritten
+    into the kernel's scaled units here, on the tensors' device."""
+    if not _on_card(qbar):
+        return ref.sketch_bound_ref(qbar, sk_lo, sk_hi, sk_scale, seg_sizes)
+    qs, wseg = ref.sketch_operands(qbar, sk_scale, seg_sizes)
+    return sketch_bound_cuda(qs, sk_lo, sk_hi, wseg)
 
 
 def lb_enhanced_op(q: Tensor, c: Tensor, u: Tensor, lo: Tensor, w: int,
@@ -80,5 +99,14 @@ def dtw_band_op(a: Tensor, b: Tensor, w: int | None = None, cutoff=None,
         return apply_pair_perm(lambda x, y, c: dtw_band_op(x, y, w, c),
                                perm, a, b, cutoff)
     if _on_card(a):
-        return dtw_band_cuda(a, b, w, cutoff)
-    return ref.dtw_band_ref(a, b, w, cutoff)
+        out = dtw_band_cuda(a, b, w, cutoff)
+    else:
+        out = ref.dtw_band_ref(a, b, w, cutoff)
+    # fault seam (search/guards.py): the plain versions the degradation
+    # ladder reruns with do not pass through here, so an injected kernel
+    # fault cannot reach the rerun.  Imported here: the kernels package
+    # imports without the search package.
+    from repro_torch.search.guards import fault_hook
+
+    hook = fault_hook("dtw_out")
+    return out if hook is None else hook(out)

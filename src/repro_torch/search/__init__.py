@@ -1,4 +1,5 @@
-"""Exact NN-DTW search: index, tier pipeline, cascade and engine."""
+"""Exact NN-DTW search: index, tier pipeline, cascade, planner, guards and
+engine."""
 
 from repro_torch.search.cascade import (
     CascadeConfig,
@@ -13,33 +14,56 @@ from repro_torch.search.cascade import (
 from repro_torch.search.engine import (
     EngineConfig,
     SearchResult,
+    SearchStats,
     brute_force,
     classify,
     nn_search,
+)
+from repro_torch.search.guards import (
+    GuardConfig,
+    GuardReport,
+    GuardWarning,
+    preflight_engine,
+    validate_series,
 )
 from repro_torch.search.index import (
     DTWIndex,
     build_index,
     index_from_numpy,
     kim_features,
-    validate_series,
+    sketch_features,
 )
 from repro_torch.search.pipeline import (
     BoundTier,
     Compaction,
+    TierStats,
     VerificationPlan,
     default_plan,
     dense_plan,
     get_tier,
+    list_tiers,
     register_tier,
+    registered_tiers,
+    tier_cost_weight,
+    unregister_tier,
+)
+from repro_torch.search.planner import (
+    PlanDecision,
+    PlannerConfig,
+    calibrate_plan,
+    optimise_plan,
 )
 
 __all__ = [
     "BoundTier", "CascadeConfig", "CascadeResult", "Compaction",
-    "DTWIndex", "EngineConfig", "SearchResult", "VerificationPlan",
-    "bands_prefilter", "brute_force", "build_index",
+    "DTWIndex", "EngineConfig", "GuardConfig", "GuardReport",
+    "GuardWarning", "PlanDecision", "PlannerConfig", "SearchResult",
+    "SearchStats", "TierStats", "VerificationPlan", "bands_prefilter",
+    "brute_force", "build_index", "calibrate_plan",
     "choose_survivor_budget", "classify", "compute_bounds", "default_plan",
     "dense_plan", "enhanced_all_pairs", "get_tier", "index_from_numpy",
-    "kim_features", "lb_kim_tier", "nn_search", "register_tier",
-    "run_plan", "validate_series",
+    "kim_features", "lb_kim_tier", "list_tiers", "nn_search",
+    "optimise_plan", "preflight_engine", "register_tier",
+    "registered_tiers", "run_plan", "sketch_features", "tier_cost_weight",
+    "unregister_tier", "validate_series",
 ]

@@ -5,9 +5,10 @@ made in a fixture, never at import).  Run on a machine with a card:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
-Tolerances: envelopes, banded DTW and the bands-only LB_ENHANCED are
-bit-equal with the same +-inf positions; the full LB_ENHANCED forms agree
-to rtol 1e-5, atol 1e-6 (their L-term sums run in another order).
+Tolerances: envelopes, banded DTW, the bands-only LB_ENHANCED and the
+sketch bound are bit-equal with the same +-inf positions; the full
+LB_ENHANCED forms and LB_Keogh agree to rtol 1e-5, atol 1e-6 (their
+L-term sums run in another order).
 """
 
 import numpy as np
@@ -20,6 +21,8 @@ from repro_torch.kernels.dtw_band import dtw_band_cuda
 from repro_torch.kernels.envelope import envelope_cuda
 from repro_torch.kernels.lb_enhanced import lb_enhanced_cuda
 from repro_torch.kernels.lb_enhanced_pairwise import lb_enhanced_pairwise_cuda
+from repro_torch.kernels.lb_keogh import lb_keogh_cuda
+from repro_torch.kernels.sketch import sketch_bound_cuda
 from repro_torch.search import (
     CascadeConfig,
     EngineConfig,
@@ -127,7 +130,8 @@ def test_wrappers_count_launches_and_refuse_bad_input(dev):
     dtw_band_cuda(x, x, 3)
     dtw_band_cuda(x, x, 3, torch.zeros(4, device=dev))
     assert _build.counts() == {"envelope": 1, "lb_enhanced": 0,
-                               "lb_enhanced_pairwise": 0, "dtw_band": 2}
+                               "lb_enhanced_pairwise": 0, "dtw_band": 2,
+                               "sketch_bound": 0, "lb_keogh": 0}
     with pytest.raises(ValueError, match="float32"):
         dtw_band_cuda(x.double(), x.double(), 3)
     with pytest.raises(ValueError, match="contiguous"):
@@ -155,8 +159,8 @@ def test_search_on_the_card_equals_the_cpu_search(dev, k, schedule):
     cpu_idx = build_index(ds.x_train, w, ds.y_train, device="cpu")
     _build.reset_counts()
     res = nn_search(gpu_idx, ds.x_test, cfg, plan=plan)
-    assert all(n > 0 for name, n in _build.counts().items()
-               if name != "envelope")
+    assert all(_build.counts()[name] > 0 for name in
+               ("lb_enhanced", "lb_enhanced_pairwise", "dtw_band"))
     want = nn_search(cpu_idx, ds.x_test, cfg, plan=plan)
     assert torch.equal(res.idx.cpu(), want.idx)
     assert torch.equal(res.n_dtw.cpu(), want.n_dtw)
@@ -165,3 +169,66 @@ def test_search_on_the_card_equals_the_cpu_search(dev, k, schedule):
     assert torch.equal(bi, res.idx) and torch.equal(bd, res.dists)
     np.testing.assert_array_equal(gpu_idx.upper.cpu().numpy(),
                                   cpu_idx.upper.numpy())
+
+
+@pytest.mark.parametrize("Q,N,S", [(3, 37, 16), (33, 200, 16), (5, 129, 7),
+                                   (1, 1, 1), (70, 65, 40), (2, 300, 256)])
+def test_sketch_bound_kernel_bit_equal(dev, Q, N, S):
+    g = torch.Generator().manual_seed(12)
+    qs = (torch.randn(Q, S, generator=g) * 60).to(dev)
+    lo = torch.randint(-127, 100, (N, S), generator=g, dtype=torch.int8)
+    hi = torch.clamp(lo.to(torch.int32) + torch.randint(
+        0, 40, (N, S), generator=g), max=127).to(torch.int8)
+    wseg = (torch.rand(S, generator=g) * 0.3).to(dev)
+    got = sketch_bound_cuda(qs, lo.to(dev), hi.to(dev), wseg)
+    _check(got, ref.sketch_bound_scaled(qs, lo.to(dev), hi.to(dev), wseg),
+           exact=True)
+    # a misaligned int8 row start takes the byte path, same values
+    lo2 = torch.zeros(N * S + 1, dtype=torch.int8, device=dev)[1:]
+    hi2 = torch.zeros(N * S + 1, dtype=torch.int8, device=dev)[1:]
+    lo2.copy_(lo.flatten())
+    hi2.copy_(hi.flatten())
+    _check(sketch_bound_cuda(qs, lo2.view(N, S), hi2.view(N, S), wseg), got,
+           exact=True)
+    with pytest.raises(ValueError, match="int8"):
+        sketch_bound_cuda(qs, lo.to(dev).float(), hi.to(dev), wseg)
+
+
+@pytest.mark.parametrize("Q,C,L,w", [(3, 37, 33, 8), (9, 70, 64, 1),
+                                     (33, 31, 100, 0), (2, 65, 9, 9),
+                                     (40, 600, 512, 51)])
+def test_lb_keogh_kernel(dev, Q, C, L, w):
+    q, c = _rand(dev, 13, Q, L), _rand(dev, 14, C, L)
+    u, lo = ref.envelope_ref(c, w)
+    _check(lb_keogh_cuda(q, u, lo), ref.lb_keogh_ref(q, u, lo), exact=False)
+
+
+def test_sketch_path_on_the_card_equals_the_cpu(dev):
+    """``use_sketch`` + ``auto_plan`` + ``mask`` on the card: the live
+    mask, the committed plan, ids, n_dtw and distances equal the CPU
+    search's, and K7 ran on the path."""
+    from repro_torch.search import planner
+
+    ds = make_dataset(n_classes=4, n_train_per_class=64,
+                      n_test_per_class=8, length=96, seed=5)
+    w = 9
+    cfg = EngineConfig(cascade=CascadeConfig(w=w, use_sketch=True),
+                       verify_chunk=8, k=1, auto_plan=True)
+    out = {}
+    for device in ("cpu", dev):
+        planner.plan_cache_clear()
+        _build.reset_counts()
+        idx = build_index(ds.x_train, w, ds.y_train, device=device,
+                          calibrate=cfg, mask=True)
+        res, stats = nn_search(idx, ds.x_test, cfg, with_stats=True)
+        out[str(device)] = (idx, res, stats, _build.counts())
+    (ci, cr, cs, _), (gi, gr, gs, counts) = out["cpu"], out[str(dev)]
+    assert counts["sketch_bound"] > 0 and counts["dtw_band"] > 0
+    assert torch.equal(gi.live.cpu(), ci.live)
+    assert torch.equal(gi.sk_lo.cpu(), ci.sk_lo)
+    assert gs.plan_tiers == cs.plan_tiers and gs.dropped == cs.dropped
+    assert torch.equal(gr.idx.cpu(), cr.idx)
+    assert torch.equal(gr.n_dtw.cpu(), cr.n_dtw)
+    assert torch.equal(gr.dists.cpu(), cr.dists)
+    assert gs.guards.tripped() == () and not gs.degraded
+    planner.plan_cache_clear()

@@ -243,10 +243,26 @@ def test_default_device_is_cuda_and_raises_without_a_card(ds, monkeypatch):
 
 
 def test_build_index_refuses_unported_options(ds):
-    for kw in (dict(sketch=16), dict(calibrate=_engine(W, 1)),
-               dict(mask=True)):
-        with pytest.raises(NotImplementedError, match="Queue 1"):
-            build_index(ds.x_train, W, device="cpu", **kw)
+    # the sketch store, plan calibration and the store mask are ported
+    # now: build_index takes them, and the sketch equals the JAX index's
+    from repro_torch.search.planner import plan_cache_clear, plan_cache_len
+
+    jidx = j_build_index(ds.x_train, W, ds.y_train)
+    idx = build_index(ds.x_train, W, ds.y_train, device="cpu")   # sketch=16
+    for name in ("sk_lo", "sk_hi", "sk_scale"):
+        np.testing.assert_array_equal(getattr(idx, name).numpy(),
+                                      np.asarray(getattr(jidx, name)))
+    plan_cache_clear()
+    cfg = EngineConfig(cascade=CascadeConfig(w=W, v=4, use_sketch=True,
+                                             candidate_chunk=CHUNK),
+                       verify_chunk=VERIFY, k=1)
+    masked = build_index(ds.x_train, W, device="cpu", calibrate=cfg,
+                         mask=True)
+    assert plan_cache_len() == 1
+    assert masked.live is not None and masked.live.shape == (idx.n,)
+    assert idx.live is None and build_index(ds.x_train, W, device="cpu",
+                                            sketch=None).sk_lo is None
+    plan_cache_clear()
 
 
 def test_input_hygiene_rejects_or_sanitizes(ds):
