@@ -2,11 +2,11 @@
 """On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
     python3 chip_smoke.py            # one CUDA card, from the repo root
-    python3 chip_smoke.py --profile  # also profile one warm nn_search
+    python3 chip_smoke.py --profile  # also profile each path's warm search
 
 1. prints the card (``nvidia-smi`` name and power limit) and builds the
-   six CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``, ``sm_90a``,
-   one process per source);
+   seven CUDA sources from ``src/repro_torch/csrc`` (``nvcc``,
+   ``sm_90a``, one process per source);
 2. drives the main path once at full size -- ``build_index`` ->
    ``classify`` (which runs ``nn_search``, guards on by default) on
    N = 16384 store series of length L = 512 (w = 51, V = 4, k = 1,
@@ -30,15 +30,28 @@
    explain it, then through the store indexed at w = 0, where it must
    raise a ``GuardWarning``, trip admissibility, degrade once, and still
    return the brute-force neighbours (see ``guard_phase``);
-6. holds each kernel against its plain PyTorch version on the card: at
+6. drives the long path: ``build_index`` -> ``classify`` -> a warm
+   ``nn_search`` on N = 1024 store series of length L = 17984 (the UEA
+   EigenWorms length) under an unconstrained window (w = L, V = 4, k = 1,
+   Q = 16), counts set to 0 before the build and read after
+   ``classify``; every DTW there runs in K5 (the band state does not fit
+   a block's shared memory), so K5 must have launched and K4 not; ids
+   and distances equal the kernel brute force for every query and no
+   guard tripped;
+7. holds each kernel against its plain PyTorch version on the card: at
    the paths' recorded inputs (timed with CUDA events) and over a sweep of
    small shapes (w in {0, 1, L/4, L}, odd L, cutoffs that kill pairs,
-   ``live`` masks with all-dead tiles, ragged sizes).  Envelopes, banded
-   DTW, the bands-only LB_ENHANCED and the sketch bound must be
-   bit-equal, with the same +-inf positions; the full LB_ENHANCED forms
-   and LB_Keogh agree to rtol 1e-5, atol 1e-6 (their L-term sums run in
-   another order);
-7. prints one ``{"kernels": [...]}`` line and, last, the device line
+   ``live`` masks with all-dead tiles, ragged sizes); K1, K2 (both forms)
+   and K3 (both forms) also at the long path's inputs; K5 also on the long
+   path's largest round (more pairs than its persistent grid has blocks)
+   with its cutoffs and without, on pairs of all its rounds, just over the
+   K4/K5 crossover and at L = 65536, w = L; K6 at the main path's K4
+   inputs; K1 at L = 65536 with w in {655, 65536}.  Envelopes, banded DTW (K4, K5, K6), the
+   bands-only LB_ENHANCED and the sketch bound must be bit-equal, with
+   the same +-inf positions; the full LB_ENHANCED forms and LB_Keogh
+   agree to rtol 1e-5, atol 1e-6 (their L-term sums run in another
+   order);
+8. prints one ``{"kernels": [...]}`` line and, last, the device line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line.  The script imports
@@ -72,9 +85,17 @@ MAIN = dict(n_classes=8, n_train_per_class=2048, n_test_per_class=32,
 # mask pay
 SKETCH = dict(n_classes=8, n_train_per_class=8192, n_test_per_class=32,
               length=512, seed=7)
+# long path: long series under an unconstrained window, N = 1024 series
+# of the UEA EigenWorms length (~221 MB of f32 store and envelopes); the
+# band half-width L - 1 = 17983 needs 288 KB of band state per pair, past
+# a block's shared memory, so every DTW runs in K5
+LONG = dict(n_classes=8, n_train_per_class=128, n_test_per_class=2,
+            length=17984, seed=7)
 V = 4
 K = 1
 VERIFY_CHUNK = 32
+# long-path pairs the K5 check and the death-block reading take
+LONG_SAMPLE = 32
 
 RTOL, ATOL = 1e-5, 1e-6
 
@@ -114,6 +135,20 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def timed(fn):
+    """One call's result and its milliseconds, CUDA events, no warm-up."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    res = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return res, start.elapsed_time(end)
+
+
 def compare(name: str, got, want, exact: bool) -> float:
     """Max abs difference of finite entries; the +-inf positions must
     match.  ``exact`` demands equal values (``torch.equal``; -0.0 == 0.0),
@@ -144,22 +179,25 @@ def compare(name: str, got, want, exact: bool) -> float:
 
 class Recorder:
     """Wraps a kernel wrapper in ``kernels.ops`` to keep the inputs of its
-    largest call on the main path (the count stays the wrapper's own).
-    It keeps references, not copies, so the timed path does no extra
-    work: the path makes every kernel input afresh and never writes to
-    one after the launch."""
+    largest call on a path (the count stays the wrapper's own), and with
+    ``keep_all`` the inputs of every call.  It keeps references, not
+    copies, so the timed path does no extra work: the path makes every
+    kernel input afresh and never writes to one after the launch."""
 
-    def __init__(self, ops_module, attr: str):
+    def __init__(self, ops_module, attr: str, keep_all: bool = False):
         self.ops, self.attr = ops_module, attr
         self.orig = getattr(ops_module, attr)
         self.args = self.kwargs = None
         self.size = -1
+        self.calls = [] if keep_all else None
         setattr(ops_module, attr, self)
 
     def __call__(self, *args, **kwargs):
         size = args[0].numel()
         if size > self.size:
             self.size, self.args, self.kwargs = size, args, kwargs
+        if self.calls is not None:
+            self.calls.append(args)
         return self.orig(*args, **kwargs)
 
     def restore(self):
@@ -219,6 +257,8 @@ def run_main_path(torch, dev):
         "nn_search_warm_s": t4 - t3,
         "mean_n_dtw": n_dtw.mean().item(),
         "pruning_power": res.pruning_power().mean().item(),
+        "lb_over_dtw_at_nn_median": lb_over_dtw_at_nn(torch, index,
+                                                      ds.x_test, res, w),
         "accuracy": acc, "launches": launches,
         "guards": guard.summary(), "warm_search_guards": cost,
     }
@@ -251,6 +291,19 @@ def guard_cost(torch, index, queries, cfg, reps: int = 2) -> dict:
     return {"guards_on_s": secs["on"], "guards_off_s": secs["off"],
             "guards_on_median_s": med["on"], "guards_off_median_s": med["off"],
             "guards_cost_median_s": med["on"] - med["off"]}
+
+
+def lb_over_dtw_at_nn(torch, index, queries, res, w: int) -> float:
+    """Median over queries of LB_ENHANCED^V (the cascade's tightest tier)
+    at the returned nearest neighbour over its DTW: how tight the bound
+    is where pruning needs it."""
+    from repro_torch.kernels import ops
+
+    q = torch.as_tensor(queries, dtype=torch.float32, device=index.device)
+    nn = res.idx[:, 0].long()
+    lb = ops.lb_enhanced_pairwise_op(q, index.series[nn], index.upper[nn],
+                                     index.lower[nn], w, V)
+    return (lb / res.dists[:, 0]).median().item()
 
 
 def check_no_guard_trip(path: str, caught, guard) -> None:
@@ -339,6 +392,107 @@ def run_sketch_path(torch, dev):
     }
     print("sketch path: " + json.dumps(summary))
     return ds, index, cfg, launches
+
+
+def long_sample(torch, calls, dev):
+    """``LONG_SAMPLE`` pairs spread evenly over the pairs of every recorded
+    DTW launch, with their cutoffs: ``(a, b, cutoff)``."""
+    a = torch.cat([c[0] for c in calls])
+    b = torch.cat([c[1] for c in calls])
+    cut = torch.cat([torch.as_tensor(
+        float("inf") if c[3] is None else c[3], dtype=torch.float32,
+        device=dev).expand(c[0].shape[0]) for c in calls])
+    sel = torch.linspace(0, a.shape[0] - 1, LONG_SAMPLE,
+                         device=dev).round().long()
+    return a[sel].contiguous(), b[sel].contiguous(), cut[sel].contiguous()
+
+
+def run_long_path(torch, dev):
+    """build_index -> classify -> warm nn_search on the long path, counts
+    set to 0 before the build and read after classify, the inputs of each
+    kernel's largest launch recorded (and of every DTW launch); checks
+    that K5 ran and K4 did not, ids and distances against the kernel brute
+    force for every query, and no guard trip; prints the ``long path:``
+    line.  Returns the recorders and the launch counts."""
+    from repro_torch.core.dtw import (dtw_band_death_blocks,
+                                      row_block_policy, tile_skip_rate)
+    from repro_torch.data import make_dataset
+    from repro_torch.kernels import _build, ops
+    from repro_torch.search import (CascadeConfig, EngineConfig,
+                                    brute_force, build_index, classify,
+                                    nn_search)
+
+    ds = make_dataset(**LONG)
+    L = ds.length
+    w = L
+    cfg = EngineConfig(cascade=CascadeConfig(w=w, v=V),
+                       verify_chunk=VERIFY_CHUNK, k=K)
+    recs = {n: Recorder(ops, n) for n in
+            ("envelope_cuda", "lb_enhanced_cuda",
+             "lb_enhanced_pairwise_cuda")}
+    recs["dtw_band_cuda"] = Recorder(ops, "dtw_band_cuda", keep_all=True)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.synchronize()
+        _build.reset_counts()
+        t0 = time.perf_counter()
+        index = build_index(ds.x_train, w, ds.y_train, device=dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        pred, res = classify(index, ds.x_test, cfg)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = _build.counts()
+        for r in recs.values():
+            r.restore()
+        t3 = time.perf_counter()
+        res2, guard = nn_search(index, ds.x_test, cfg, with_guards=True)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+    check_no_guard_trip("long path", caught, guard)
+    for kname in ("envelope", "lb_enhanced", "lb_enhanced_pairwise",
+                  "dtw_band_stream"):
+        check(launches[kname] > 0,
+              f"kernel {kname} was not launched on the long path")
+    check(launches["dtw_band"] == 0, "long path: K4 ran a band it cannot "
+          "hold")
+    check(torch.equal(res2.idx, res.idx) and torch.equal(res2.dists,
+                                                         res.dists),
+          "long path: a repeated nn_search gave another result")
+    check(torch.isfinite(res.dists).all().item(), "long path: non-finite "
+          "distances")
+    t5 = time.perf_counter()
+    bd, bi = brute_force(index, ds.x_test, w, k=K)
+    torch.cuda.synchronize()
+    t6 = time.perf_counter()
+    check(torch.equal(bi, res.idx),
+          "long path: ids differ from the kernel brute force")
+    check(torch.equal(bd, res.dists),
+          "long path: distances not bit-equal to the kernel brute force")
+    # row blocks K5 skipped on the path: death blocks (plain version) of
+    # LONG_SAMPLE pairs spread evenly over every pair it verified
+    sa, sb, sc = long_sample(torch, recs["dtw_band_cuda"].calls, dev)
+    death = dtw_band_death_blocks(sa, sb, w, sc)
+    n_blocks = -(-(2 * L - 1) // row_block_policy(L))
+    y = torch.as_tensor(ds.y_test, device=dev)
+    summary = {
+        "N": index.n, "L": L, "w": w, "v": V, "k": K, "Q": len(ds.x_test),
+        "verify_chunk": VERIFY_CHUNK,
+        "build_index_s": t1 - t0, "classify_s": t2 - t1,
+        "nn_search_warm_s": t4 - t3,
+        "mean_n_dtw": res.n_dtw.float().mean().item(),
+        "pruning_power": res.pruning_power().mean().item(),
+        "lb_over_dtw_at_nn_median": lb_over_dtw_at_nn(torch, index,
+                                                      ds.x_test, res, w),
+        "accuracy": (pred.long() == y.long()).float().mean().item(),
+        "launches": launches, "guards": guard.summary(),
+        "brute_force_all_queries_s": t6 - t5,
+        "k5_pairs": sum(c[0].shape[0] for c in recs["dtw_band_cuda"].calls),
+        "sample_pairs": LONG_SAMPLE, "n_row_blocks": n_blocks,
+        "skipped_block_share_sample": tile_skip_rate(death, n_blocks, 1),
+    }
+    print("long path: " + json.dumps(summary))
+    return ds, index, cfg, recs, launches
 
 
 def guard_phase(torch, ds, main_index, main_cfg, dev) -> None:
@@ -504,17 +658,18 @@ def band_ops(nb: int) -> int:
     return 4 * nb * nb + 2 * nb - 1
 
 
-def kernel_phases(torch, dev, recs, launches, sk_index, sk_queries,
-                  sk_launches, main_idx, main_queries):
+def kernel_phases(torch, dev, recs, windows, sk_index, sk_queries,
+                  main_idx, main_queries, long_recs):
     """Each kernel against its plain version at the paths' inputs (timed)
     and over a small sweep.  Returns the ``kernels`` records; a kernel's
-    ``main_path_launches`` and ``sketch_path_launches`` are its counts in
-    each path's window, ``launches`` their sum."""
+    ``{main,sketch,long}_path_launches`` are its counts in each path's
+    window (``windows``), ``launches`` their sum."""
     import torch.nn.functional as F
 
     from repro_torch.core.lower_bounds import _n_bands
     from repro_torch.kernels import ref
-    from repro_torch.kernels.dtw_band import dtw_band_cuda
+    from repro_torch.kernels.dtw_band import (STREAM_BLOCKS_PER_SM,
+                                              dtw_band_cuda, dtw_band_route)
     from repro_torch.kernels.envelope import envelope_cuda
     from repro_torch.kernels.lb_enhanced import lb_enhanced_cuda
     from repro_torch.kernels.lb_enhanced_pairwise import (
@@ -524,14 +679,32 @@ def kernel_phases(torch, dev, recs, launches, sk_index, sk_queries,
 
     def path_launches(kname: str) -> dict:
         # each path's own reset-and-read window, and their sum
-        return dict(launches=launches[kname] + sk_launches[kname],
-                    main_path_launches=launches[kname],
-                    sketch_path_launches=sk_launches[kname])
+        per = {f"{path}_path_launches": counts[kname]
+               for path, counts in windows.items()}
+        return dict(launches=sum(per.values()), **per)
 
     gen = torch.Generator(device="cpu").manual_seed(11)
 
     def randn(*shape):
         return torch.randn(*shape, generator=gen).to(dev)
+
+    def long_lb(name, fn, rfn):
+        """A bound kernel at its long-path input (L = 17984, w = L) in
+        both forms against its plain version: bands-only bit-equal, the
+        full form within rtol 1e-5.  Returns the record's long-path keys
+        (the time is of the form the path ran)."""
+        rec = long_recs[f"{name}_cuda"]
+        args = rec.args
+        kw = {k: v for k, v in rec.kwargs.items() if k != "bands_only"}
+        errs = {}
+        for bo, form in ((True, "bands_only"), (False, "full_form")):
+            errs[f"long_path_{form}_max_abs_err"] = compare(
+                f"{name} (long path, {form})", fn(*args, **kw, bands_only=bo),
+                rfn(*args, **kw, bands_only=bo), exact=bo)
+        return args, dict(
+            long_path_ms=time_ms(lambda: fn(*args, **rec.kwargs), 5),
+            long_path_bands_only=bool(rec.kwargs.get("bands_only")),
+            **errs)
 
     out = []
 
@@ -545,18 +718,29 @@ def kernel_phases(torch, dev, recs, launches, sk_index, sk_queries,
         x = randn(n, Ls)
         compare(f"envelope sweep {(n, Ls, ws)}", envelope_cuda(x, ws),
                 ref.envelope_ref(x, ws), exact=True)
+    # any window at long series: L = 65536 with w = L / 100 and w = L
+    x = randn(4, 65536)
+    for ws in (655, 65536):
+        compare(f"envelope L=65536 w={ws}", envelope_cuda(x, ws),
+                ref.envelope_ref(x, ws), exact=True)
+    bl, wl = long_recs["envelope_cuda"].args
+    err_long = compare("envelope (long path)", envelope_cuda(bl, wl),
+                       ref.envelope_ref(bl, wl), exact=True)
     stacked = torch.stack([b, -b])
     bms, by = bound(12.0 * N * L, 6.0 * N * L)
     out.append(dict(
         name="envelope", route="cuda", source="src/repro_torch/csrc/envelope.cu",
         replaces="src/repro/kernels/envelope.py:72",
-        **path_launches("envelope"), max_abs_err=err,
+        **path_launches("envelope"), max_abs_err=max(err, err_long),
         ms=time_ms(lambda: envelope_cuda(b, w), 20),
         plain_ms=time_ms(lambda: ref.envelope_ref(b, w), 5),
         bound_ms=bms, bound_by=by,
         library_ms=time_ms(lambda: F.max_pool1d(
             stacked, 2 * w + 1, stride=1, padding=w), 20),
-        shape=f"N={N} L={L} w={w}"))
+        shape=f"N={N} L={L} w={w}",
+        long_path_shape=f"N={bl.shape[0]} L={bl.shape[1]} w={wl}",
+        long_path_ms=time_ms(lambda: envelope_cuda(bl, wl), 5),
+        long_path_bound_ms=bound(12.0 * bl.numel(), 6.0 * bl.numel())[0]))
 
     # ---- K2 cross-block LB_ENHANCED (bands-only on the path) --------------
     args = recs["lb_enhanced_cuda"].args
@@ -590,6 +774,13 @@ def kernel_phases(torch, dev, recs, launches, sk_index, sk_queries,
                     exact=False)
     bms, by = bound(4.0 * Q * C + 8.0 * nb * (Q + C),
                     float(band_ops(nb)) * Q * C)
+    (ql, cl, _, _, wl, vl), k2_long = long_lb("lb_enhanced", lb_enhanced_cuda,
+                                              ref.lb_enhanced_ref)
+    check(k2_long["long_path_bands_only"], "the long path's bands tier ran "
+          "the full form")
+    Ql, Ll = ql.shape
+    Cl = cl.shape[0]
+    nbl = _n_bands(Ll, wl, vl)
     out.append(dict(
         name="lb_enhanced", route="cuda",
         source="src/repro_torch/csrc/lb_enhanced.cu",
@@ -601,7 +792,11 @@ def kernel_phases(torch, dev, recs, launches, sk_index, sk_queries,
         shape=f"Q={Q} C={C} L={L} w={w2} v={v} bands_only",
         full_form_max_abs_err=err_full,
         full_form_ms=time_ms(lambda: lb_enhanced_cuda(q, c, u, lo, w2, v),
-                             20)))
+                             20),
+        long_path_shape=f"Q={Ql} C={Cl} L={Ll} w={wl} v={vl} bands_only",
+        long_path_bound_ms=bound(4.0 * Ql * Cl + 8.0 * nbl * (Ql + Cl),
+                                 float(band_ops(nbl)) * Ql * Cl)[0],
+        **k2_long))
 
     # ---- K3 pairwise LB_ENHANCED ------------------------------------------
     args = recs["lb_enhanced_pairwise_cuda"].args
@@ -635,6 +830,11 @@ def kernel_phases(torch, dev, recs, launches, sk_index, sk_queries,
     # column costs two subtracts, two maxes, a multiply and an add
     bms, by = bound(12.0 * P * (L - 2 * nb) + 16.0 * nb * P + 4.0 * P,
                     6.0 * P * (L - 2 * nb) + float(band_ops(nb)) * P)
+    (ql, _, _, _, wl, vl), k3_long = long_lb(
+        "lb_enhanced_pairwise", lb_enhanced_pairwise_cuda,
+        ref.lb_enhanced_pairwise_ref)
+    Pl, Ll = ql.shape
+    nbl = _n_bands(Ll, wl, vl)
     out.append(dict(
         name="lb_enhanced_pairwise", route="cuda",
         source="src/repro_torch/csrc/lb_enhanced_pairwise.cu",
@@ -644,15 +844,29 @@ def kernel_phases(torch, dev, recs, launches, sk_index, sk_queries,
         plain_ms=time_ms(lambda: ref.lb_enhanced_pairwise_ref(*args, **kw),
                          3),
         bound_ms=bms, bound_by=by, library_ms=None,
-        shape=f"P={P} L={L} w={w3} v={v}"))
+        shape=f"P={P} L={L} w={w3} v={v}",
+        long_path_shape=f"P={Pl} L={Ll} w={wl} v={vl}",
+        long_path_bound_ms=bound(
+            12.0 * Pl * (Ll - 2 * nbl) + 16.0 * nbl * Pl + 4.0 * Pl,
+            6.0 * Pl * (Ll - 2 * nbl) + float(band_ops(nbl)) * Pl)[0],
+        **k3_long))
 
-    # ---- K4 banded DTW ----------------------------------------------------
+    # ---- K4 banded DTW, K6 its per-step form, K5 its band-streaming form
     a, bb, w4, cut = recs["dtw_band_cuda"].args
     P, L = a.shape
-    err_cut = compare("dtw_band (round cutoffs)", dtw_band_cuda(a, bb, w4, cut),
+    k4_cut = dtw_band_cuda(a, bb, w4, cut)
+    err_cut = compare("dtw_band (round cutoffs)", k4_cut,
                       ref.dtw_band_ref(a, bb, w4, cut), exact=True)
-    err = compare("dtw_band", dtw_band_cuda(a, bb, w4),
-                  ref.dtw_band_ref(a, bb, w4), exact=True)
+    k4 = dtw_band_cuda(a, bb, w4)
+    err = compare("dtw_band", k4, ref.dtw_band_ref(a, bb, w4), exact=True)
+    # K6 at the same inputs: bit-equal to its plain version and to K4
+    k6_cut = dtw_band_cuda(a, bb, w4, cut, early_exit=False)
+    err6 = compare("dtw_band_step (round cutoffs)", k6_cut,
+                   ref.dtw_band_ref(a, bb, w4, cut, row_block=1), exact=True)
+    compare("dtw_band_step = K4 (round cutoffs)", k6_cut, k4_cut, exact=True)
+    compare("dtw_band_step = K4", dtw_band_cuda(a, bb, w4, early_exit=False),
+            k4, exact=True)
+    # the sweep: K4, K5 forced and K6, each against the plain version
     for Ps, Ls, ws in [(37, 33, 0), (37, 33, 1), (37, 33, 8), (37, 33, 33),
                        (20, 100, 25), (5, 513, 51), (3, 1, 0), (6, 2, 5),
                        (4, 700, 700)]:
@@ -661,19 +875,106 @@ def kernel_phases(torch, dev, recs, launches, sk_index, sk_queries,
         cut_s = exact_d * (0.5 + torch.rand(Ps, generator=gen).to(dev))
         cut_s[::5] = float("-inf")                    # invalid slots
         for cs in (None, cut_s):
-            compare(f"dtw_band sweep {(Ps, Ls, ws)}",
-                    dtw_band_cuda(xa, xb, ws, cs),
-                    ref.dtw_band_ref(xa, xb, ws, cs), exact=True)
+            want = ref.dtw_band_ref(xa, xb, ws, cs)
+            got4 = dtw_band_cuda(xa, xb, ws, cs)
+            compare(f"dtw_band sweep {(Ps, Ls, ws)}", got4, want, exact=True)
+            compare(f"dtw_band_stream sweep {(Ps, Ls, ws)}",
+                    dtw_band_cuda(xa, xb, ws, cs, stream=True), got4,
+                    exact=True)
+            compare(f"dtw_band_step sweep {(Ps, Ls, ws)}",
+                    dtw_band_cuda(xa, xb, ws, cs, early_exit=False),
+                    ref.dtw_band_ref(xa, xb, ws, cs, row_block=1),
+                    exact=True)
     bms, by = bound(8.0 * P * L + 8.0 * P, 5.0 * band_cells(L, w4) * P)
+    k4_ms = time_ms(lambda: dtw_band_cuda(a, bb, w4), 20)
+    k4_cut_ms = time_ms(lambda: dtw_band_cuda(a, bb, w4, cut), 20)
     out.append(dict(
         name="dtw_band", route="cuda", source="src/repro_torch/csrc/dtw_band.cu",
         replaces="src/repro/kernels/dtw_band.py:323",
         **path_launches("dtw_band"), max_abs_err=max(err, err_cut),
-        ms=time_ms(lambda: dtw_band_cuda(a, bb, w4), 20),
+        ms=k4_ms,
         plain_ms=time_ms(lambda: ref.dtw_band_ref(a, bb, w4), 2, warmup=1),
         bound_ms=bms, bound_by=by, library_ms=None,
         shape=f"P={P} L={L} w={w4} no cutoff",
-        round_cutoffs_ms=time_ms(lambda: dtw_band_cuda(a, bb, w4, cut), 20)))
+        round_cutoffs_ms=k4_cut_ms))
+    # K6: K4's 5 operations per band cell plus the per-step frontier test,
+    # one min per cell (each cell's minimum is taken once and carried to
+    # the next step's min(S_d, S_{d-1}))
+    bms, by = bound(8.0 * P * L + 8.0 * P, 6.0 * band_cells(L, w4) * P)
+    out.append(dict(
+        name="dtw_band_step", route="cuda",
+        source="src/repro_torch/csrc/dtw_band.cu",
+        replaces="src/repro/kernels/dtw_band.py:121",
+        **path_launches("dtw_band_step"), max_abs_err=err6,
+        ms=time_ms(lambda: dtw_band_cuda(a, bb, w4, early_exit=False), 20),
+        plain_ms=time_ms(lambda: ref.dtw_band_ref(a, bb, w4, row_block=1),
+                         1, warmup=1),
+        bound_ms=bms, bound_by=by, library_ms=None,
+        shape=f"P={P} L={L} w={w4} no cutoff (the main path's K4 input)",
+        round_cutoffs_ms=time_ms(
+            lambda: dtw_band_cuda(a, bb, w4, cut, early_exit=False), 20),
+        k4_ms=k4_ms, k4_round_cutoffs_ms=k4_cut_ms))
+
+    # K5: the long path's largest round (P above the persistent grid, so
+    # each block loops over pairs) with its own cutoffs and with none,
+    # pairs of all its rounds with their cutoffs, then just over the
+    # crossover, then L = 65536 at w = L
+    al, bl, wl, cutl = long_recs["dtw_band_cuda"].args[:4]
+    Pl, Ll = al.shape
+    grid = (STREAM_BLOCKS_PER_SM
+            * torch.cuda.get_device_properties(dev).multi_processor_count)
+    check(Pl > grid, f"the largest long-path round ({Pl} pairs) does not "
+          f"exceed K5's grid of {grid} blocks")
+    k5_round_cut = dtw_band_cuda(al, bl, wl, cutl, stream=True)
+    plain_round_cut, plain_round_cut_ms = timed(
+        lambda: ref.dtw_band_ref(al, bl, wl, cutl))
+    err5 = compare("dtw_band_stream (largest long-path round, its cutoffs)",
+                   k5_round_cut, plain_round_cut, exact=True)
+    plain_round, plain_round_ms = timed(lambda: ref.dtw_band_ref(al, bl, wl))
+    err5 = max(err5, compare("dtw_band_stream (largest long-path round)",
+                             dtw_band_cuda(al, bl, wl, stream=True),
+                             plain_round, exact=True))
+    sa, sb, sc = long_sample(torch, long_recs["dtw_band_cuda"].calls, dev)
+    err5 = max(err5, compare(
+        "dtw_band_stream (long-path round pairs, cutoffs)",
+        dtw_band_cuda(sa, sb, wl, sc, stream=True),
+        ref.dtw_band_ref(sa, sb, wl, sc), exact=True))
+    Lx = 14465                                      # wb = 14464, w = L
+    check(dtw_band_route(Lx, Lx) == "stream"
+          and dtw_band_route(Lx - 1, Lx - 1) == "resident",
+          "the K4/K5 crossover is not at wb = 14463/14464")
+    xa, xb = randn(2, Lx), randn(2, Lx)
+    exact_x = ref.dtw_band_ref(xa, xb, Lx)
+    compare("dtw_band_stream just over the crossover",
+            dtw_band_cuda(xa, xb, Lx, stream=True), exact_x, exact=True)
+    cut_x = torch.stack([exact_x[0] * 2, exact_x[1] * 0.5])
+    compare("dtw_band_stream just over the crossover (cutoffs)",
+            dtw_band_cuda(xa, xb, Lx, cut_x, stream=True),
+            ref.dtw_band_ref(xa, xb, Lx, cut_x), exact=True)
+    xa, xb = randn(2, 65536), randn(2, 65536)
+    t0 = time.perf_counter()
+    got65 = dtw_band_cuda(xa, xb, 65536, stream=True)
+    torch.cuda.synchronize()
+    k5_65536_s = time.perf_counter() - t0
+    compare("dtw_band_stream L=65536 w=L", got65,
+            ref.dtw_band_ref(xa, xb, 65536), exact=True)
+    bms, by = bound(8.0 * Pl * Ll + 8.0 * Pl, 5.0 * band_cells(Ll, wl) * Pl)
+    out.append(dict(
+        name="dtw_band_stream", route="cuda",
+        source="src/repro_torch/csrc/dtw_band_stream.cu",
+        replaces="src/repro/kernels/dtw_band.py:410",
+        **path_launches("dtw_band_stream"), max_abs_err=err5,
+        ms=time_ms(lambda: dtw_band_cuda(al, bl, wl, stream=True), 2,
+                   warmup=1),
+        plain_ms=plain_round_ms,
+        bound_ms=bms, bound_by=by, library_ms=None,
+        shape=f"P={Pl} L={Ll} w={wl} no cutoff (the long path's largest "
+              f"round; grid {grid} blocks)",
+        round_cutoffs_ms=time_ms(
+            lambda: dtw_band_cuda(al, bl, wl, cutl, stream=True), 2,
+            warmup=1),
+        round_cutoffs_plain_ms=plain_round_cut_ms,
+        L65536_two_pairs_s=k5_65536_s))
 
     # ---- K7 sketch bound (tier -1 of the sketch path) ---------------------
     # all Q = 256 sketch-path queries against the path's sketch store
@@ -787,12 +1088,17 @@ def main() -> int:
         check_search(torch, ds, index, cfg, res)
         sk_ds, sk_index, sk_cfg, sk_launches = run_sketch_path(torch, dev)
         guard_phase(torch, ds, index, cfg, dev)
+        lg_ds, lg_index, lg_cfg, lg_recs, lg_launches = run_long_path(
+            torch, dev)
         if "--profile" in sys.argv[1:]:
             profile_search(torch, ds, index, cfg, "main path")
             profile_search(torch, sk_ds, sk_index, sk_cfg, "sketch path")
-        kernels = kernel_phases(torch, dev, recs, launches, sk_index,
-                                sk_ds.x_test, sk_launches, index, ds.x_test)
-        del sk_index
+            profile_search(torch, lg_ds, lg_index, lg_cfg, "long path")
+        windows = {"main": launches, "sketch": sk_launches,
+                   "long": lg_launches}
+        kernels = kernel_phases(torch, dev, recs, windows, sk_index,
+                                sk_ds.x_test, index, ds.x_test, lg_recs)
+        del sk_index, lg_index
         torch.cuda.synchronize()
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)

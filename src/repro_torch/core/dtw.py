@@ -67,6 +67,7 @@ def band_step(d: int, carry, a2p: Tensor, b2p: Tensor, kk: Tensor,
 
     ``carry = (S_{d-1}, S_{d-2})`` as ``(P, Wb)`` blocks; returns
     ``(S_d, S_{d-1})``.  ``kk`` is the ``(Wb,)`` diagonal-offset iota.
+    Cells off the matrix or of the other parity are ``+inf``.
     """
     d1, d2 = carry
     Wb = d1.shape[-1]
@@ -74,29 +75,30 @@ def band_step(d: int, carry, a2p: Tensor, b2p: Tensor, kk: Tensor,
     b_at = b2p[:, 2 * L - 1 - d:2 * L - 1 - d + Wb]    # b[(d - k + w) // 2]
     diff = a_at - b_at
     cost = diff * diff
-    inf_col = torch.full_like(d1[:, :1], _INF)
-    dep_l = torch.cat([inf_col, d1[:, :-1]], dim=-1)   # S_{d-1}[k-1]
-    dep_r = torch.cat([d1[:, 1:], inf_col], dim=-1)    # S_{d-1}[k+1]
+    dep_l = F.pad(d1[:, :-1], (1, 0), value=_INF)      # S_{d-1}[k-1]
+    dep_r = F.pad(d1[:, 1:], (0, 1), value=_INF)       # S_{d-1}[k+1]
     best = torch.minimum(torch.minimum(dep_l, dep_r), d2)
     if d == 0:
         best = torch.where(kk == w, 0.0, best)         # the path's origin
     nd = cost + best
-    t = d + kk - w                                     # 2i
-    s = d - kk + w                                     # 2j
-    valid = ((t & 1) == 0) & (t >= 0) & (t <= 2 * L - 2) \
-        & (s >= 0) & (s <= 2 * L - 2)
-    return torch.where(valid, nd, _INF), d1
+    # a cell exists where t = d + k - w (2i) is even and both t and
+    # s = d - k + w (2j) lie in [0, 2L - 2]: a parity mask and a k range
+    nd = torch.where((kk & 1) == ((d + w) & 1), nd, _INF)
+    k_lo = max(w - d, d + w - (2 * L - 2))
+    k_hi = min(d + w, 2 * L - 2 - d + w)
+    if k_lo > 0:
+        nd[:, :k_lo] = _INF
+    if k_hi < Wb - 1:
+        nd[:, max(k_hi + 1, 0):] = _INF
+    return nd, d1
 
 
-def dtw_band_blocked(a: Tensor, b: Tensor, w: int | None = None,
-                     cutoff: Tensor | float | None = None, *,
-                     row_block: int | None = None) -> Tensor:
-    """Batched band-packed DTW ``(P, L) x (P, L) -> (P,)`` with the
-    row-block abandon checks (module docstring).
-
-    ``cutoff`` is a per-pair ``(P,)`` threshold or a scalar; ``None``
-    never abandons.  Below its cutoff a pair's value is exact.
-    """
+def _band_blocked_scan(a: Tensor, b: Tensor, w: int | None, cutoff,
+                       row_block: int | None) -> tuple[Tensor, Tensor]:
+    """The row-block-checked sweep: ``((P,) values, (P,) death)``, where
+    ``death[p]`` is the first row block whose boundary check abandoned
+    pair ``p`` (``n_blocks - 1`` for survivors).  One definition serves
+    ``dtw_band_blocked`` and ``dtw_band_death_blocks``."""
     P, L = a.shape
     wb = _band_width(L, w)
     Wb = 2 * wb + 1
@@ -109,6 +111,9 @@ def dtw_band_blocked(a: Tensor, b: Tensor, w: int | None = None,
     R = row_block if row_block is not None else row_block_policy(L)
     D = 2 * L - 1
     R = max(1, min(R, D))
+    n_blocks = -(-D // R)
+    death = torch.full((P,), n_blocks - 1, dtype=torch.int32, device=dev)
+    found = torch.zeros((P,), dtype=torch.bool, device=dev)
     a2p, b2p = _pack(a, b, wb)
     kk = torch.arange(Wb, device=dev)
     d1 = torch.full((P, Wb), _INF, dtype=dt, device=dev)
@@ -118,10 +123,47 @@ def dtw_band_blocked(a: Tensor, b: Tensor, w: int | None = None,
         if (d + 1) % R == 0 or d == D - 1:
             fmin = torch.minimum(nd, d1).amin(dim=-1, keepdim=True)
             dead = fmin > cut
+            death = torch.where(dead[:, 0] & ~found, d // R, death)
+            found = found | dead[:, 0]
             nd = torch.where(dead, _INF, nd)
             d1 = torch.where(dead, _INF, d1)
         d1, d2 = nd, d1
-    return d1[:, wb]
+    return d1[:, wb], death
+
+
+def dtw_band_blocked(a: Tensor, b: Tensor, w: int | None = None,
+                     cutoff: Tensor | float | None = None, *,
+                     row_block: int | None = None) -> Tensor:
+    """Batched band-packed DTW ``(P, L) x (P, L) -> (P,)`` with the
+    row-block abandon checks (module docstring).
+
+    ``cutoff`` is a per-pair ``(P,)`` threshold or a scalar; ``None``
+    never abandons.  Below its cutoff a pair's value is exact.
+    """
+    return _band_blocked_scan(a, b, w, cutoff, row_block)[0]
+
+
+def dtw_band_death_blocks(a: Tensor, b: Tensor, w: int | None = None,
+                          cutoff: Tensor | float | None = None, *,
+                          row_block: int | None = None) -> Tensor:
+    """``(P,)`` int32 index of the first row block whose boundary check
+    abandons each pair (``n_blocks - 1`` for pairs that never abandon):
+    the blocks after it are the ones an early-exit kernel skips."""
+    return _band_blocked_scan(a, b, w, cutoff, row_block)[1]
+
+
+def tile_skip_rate(death_blocks, n_blocks: int, tile_p: int) -> float:
+    """Fraction of (pair tile, row block) cells an early-exit grid skips,
+    given per-pair death blocks in packed order: a tile runs blocks
+    ``0..max(death over its pairs)``; pad pairs of a short last tile die
+    at block 0, so they never hold a tile open."""
+    death = torch.as_tensor(death_blocks).to(torch.int64).flatten()
+    pad = (-death.shape[0]) % tile_p
+    if pad:
+        death = torch.cat([death, death.new_zeros(pad)])
+    last = death.reshape(-1, tile_p).amax(dim=1)
+    skipped = int((n_blocks - 1 - last).sum())
+    return float(skipped) / float(last.shape[0] * n_blocks)
 
 
 def dtw(a: Tensor, b: Tensor, w: int | None = None,
@@ -130,3 +172,51 @@ def dtw(a: Tensor, b: Tensor, w: int | None = None,
     every step (the JAX scalar ``dtw``'s rule): exact below ``cutoff``,
     ``+inf`` once the frontier minimum passes it."""
     return dtw_band_blocked(a[None], b[None], w, cutoff, row_block=1)[0]
+
+
+def dtw_batch(a: Tensor, b: Tensor, w: int | None = None) -> Tensor:
+    """Batched ``DTW_w`` over broadcast leading axes:
+    ``(..., L) x (..., L) -> (...)``."""
+    shape = torch.broadcast_shapes(a.shape[:-1], b.shape[:-1])
+    L = a.shape[-1]
+    a2 = a.expand(*shape, L).reshape(-1, L)
+    b2 = b.expand(*shape, L).reshape(-1, L)
+    return dtw_band_blocked(a2, b2, w, row_block=1).reshape(shape)
+
+
+def dtw_pairs(q: Tensor, c: Tensor, w: int | None = None) -> Tensor:
+    """All-pairs ``DTW_w``: ``(Q, L) x (C, L) -> (Q, C)``."""
+    Q, C = q.shape[0], c.shape[0]
+    return dtw_band_blocked(q.repeat_interleave(C, dim=0), c.repeat(Q, 1),
+                            w, row_block=1).reshape(Q, C)
+
+
+def cost_matrix(a: Tensor, b: Tensor, w: int | None = None) -> Tensor:
+    """Full ``(L, L)`` DP matrix ``D`` (``+inf`` outside the band), for
+    debugging and figures: the band-packed sweep's anti-diagonals
+    scattered back to ``(i, j)``, so ``D[L-1, L-1] == dtw(a, b, w)``."""
+    L = a.shape[-1]
+    wb = _band_width(L, w)
+    Wb = 2 * wb + 1
+    a2p, b2p = _pack(a[None], b[None], wb)
+    kk = torch.arange(Wb, device=a.device)
+    out = torch.full((L, L), _INF, dtype=a.dtype, device=a.device)
+    d1 = torch.full((1, Wb), _INF, dtype=a.dtype, device=a.device)
+    d2 = d1.clone()
+    for d in range(2 * L - 1):
+        nd, d1 = band_step(d, (d1, d2), a2p, b2p, kk, L=L, w=wb)
+        i2 = d + kk - wb                               # 2i
+        j2 = d - kk + wb                               # 2j
+        ok = ((i2 & 1) == 0) & (i2 >= 0) & (i2 <= 2 * L - 2) \
+            & (j2 >= 0) & (j2 <= 2 * L - 2)
+        out[i2[ok] // 2, j2[ok] // 2] = nd[0, ok]
+        d1, d2 = nd, d1
+    return out
+
+
+def dtw_envelope_bound_gap(a: Tensor, b: Tensor, lb: Tensor,
+                           w: int | None = None) -> Tensor:
+    """Tightness ``lb / DTW_w(a, b)`` (paper Eq. 15), 1 where the DTW is
+    0, for diagnostics."""
+    d = dtw(a, b, w)
+    return torch.where(d > 0, lb / d, 1.0)

@@ -7,9 +7,6 @@
 
 #define RT_INF CUDART_INF_F
 
-// Dynamic shared memory a block may opt into on sm_90 (227 KB).
-#define RT_MAX_DYN_SMEM 232448
-
 // Block-wide minimum; every thread gets the result.  ``red`` holds one
 // float per warp.  blockDim.x must be a multiple of 32.
 __device__ __forceinline__ float rt_block_min(float v, float* red) {

@@ -31,16 +31,18 @@ _FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
 _SIGNATURES = {
     # name: (argtypes, restype)
-    "envelope_launch": ([_P, _P, _P, _I, _I, _I, _P], _I),
-    "envelope_smem_bytes": ([_I, _I], ctypes.c_longlong),
+    "envelope_launch": ([_P, _P, _P, _P, _I, _LL, _I, _I, _P], _I),
     "lb_enhanced_launch": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
                            _I),
     "lb_enhanced_pairwise_launch": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                      _P], _I),
     "dtw_band_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
-    "dtw_band_smem_bytes": ([_I], ctypes.c_longlong),
+    "dtw_band_step_launch": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
+    "dtw_band_stream_launch": ([_P, _P, _P, _P, _P, _I, _LL, _I, _I, _I,
+                                _P], _I),
     "sketch_bound_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
     "sketch_bound_smem_bytes": ([_I], ctypes.c_longlong),
     "lb_keogh_launch": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
@@ -136,7 +138,7 @@ def check(rc: int, what: str) -> None:
 # so a run can show that a path went through the kernel.
 COUNTS: dict[str, int] = dict.fromkeys(
     ("envelope", "lb_enhanced", "lb_enhanced_pairwise", "dtw_band",
-     "sketch_bound", "lb_keogh"), 0)
+     "dtw_band_stream", "dtw_band_step", "sketch_bound", "lb_keogh"), 0)
 
 
 def reset_counts() -> None:

@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.dtw_band import dtw_band_cuda
+from repro_torch.kernels.dtw_band import dtw_band_cuda, dtw_band_route
 from repro_torch.kernels.envelope import envelope_cuda
 from repro_torch.kernels.lb_enhanced import lb_enhanced_cuda
 from repro_torch.kernels.lb_enhanced_pairwise import lb_enhanced_pairwise_cuda
@@ -83,25 +83,39 @@ def lb_enhanced_pairwise_op(q: Tensor, c: Tensor, u: Tensor, lo: Tensor,
 
 
 def dtw_band_op(a: Tensor, b: Tensor, w: int | None = None, cutoff=None,
-                *, perm: Tensor | None = None,
+                *, early_exit: bool = True, perm: Tensor | None = None,
                 tile_p: int | None = None) -> Tensor:
     """Pairwise banded DTW ``(P, L) x (P, L) -> (P,)``.
 
     ``cutoff`` (scalar or ``(P,)``): pairs whose frontier minimum passes
     it at a row-block boundary return ``+inf``; below it values are
-    exact.  ``perm`` gathers the pairs into that order before the call
+    exact.  ``early_exit=False`` tests the frontier at every
+    anti-diagonal instead and skips nothing (K6, the baseline; same
+    results).  ``perm`` gathers the pairs into that order before the call
     and scatters the results back (no effect on results).  ``tile_p`` is
-    the JAX kernel's pair-tile cap; this kernel runs one block per pair,
+    the JAX kernel's pair-tile cap; these kernels run one pair per block,
     so it is accepted and ignored.
+
+    On the card ``dtw_band_route(L, w)`` picks K4 (K6) while the band's
+    state fits a block's shared memory and K5 past that; past the
+    crossover ``early_exit=False`` is ignored, as in the JAX package.
+    Every ``(L, w)`` runs on the card; none falls back to the plain
+    version.  On the CPU the plain versions run: ``ref.dtw_band_ref``, or
+    ``dtw_band_blocked(..., row_block=1)`` for ``early_exit=False``.
     """
     del tile_p
     if perm is not None:
-        return apply_pair_perm(lambda x, y, c: dtw_band_op(x, y, w, c),
-                               perm, a, b, cutoff)
+        return apply_pair_perm(
+            lambda x, y, c: dtw_band_op(x, y, w, c, early_exit=early_exit),
+            perm, a, b, cutoff)
+    stream = dtw_band_route(a.shape[-1], w) == "stream"
+    early_exit = early_exit or stream
     if _on_card(a):
-        out = dtw_band_cuda(a, b, w, cutoff)
+        out = dtw_band_cuda(a, b, w, cutoff, early_exit=early_exit,
+                            stream=stream)
     else:
-        out = ref.dtw_band_ref(a, b, w, cutoff)
+        out = ref.dtw_band_ref(a, b, w, cutoff,
+                               row_block=None if early_exit else 1)
     # fault seam (search/guards.py): the plain versions the degradation
     # ladder reruns with do not pass through here, so an injected kernel
     # fault cannot reach the rerun.  Imported here: the kernels package

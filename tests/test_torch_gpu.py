@@ -5,8 +5,9 @@ made in a fixture, never at import).  Run on a machine with a card:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
-Tolerances: envelopes, banded DTW, the bands-only LB_ENHANCED and the
-sketch bound are bit-equal with the same +-inf positions; the full
+Tolerances: envelopes, banded DTW (K4, the per-step K6 and the
+band-streaming K5), the bands-only LB_ENHANCED and the sketch bound are
+bit-equal with the same +-inf positions; the full
 LB_ENHANCED forms and LB_Keogh agree to rtol 1e-5, atol 1e-6 (their
 L-term sums run in another order).
 """
@@ -16,8 +17,12 @@ import pytest
 import torch
 
 from repro_torch.data import make_dataset
-from repro_torch.kernels import _build, ref
-from repro_torch.kernels.dtw_band import dtw_band_cuda
+from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels.dtw_band import (
+    STREAM_BLOCKS_PER_SM,
+    dtw_band_cuda,
+    dtw_band_route,
+)
 from repro_torch.kernels.envelope import envelope_cuda
 from repro_torch.kernels.lb_enhanced import lb_enhanced_cuda
 from repro_torch.kernels.lb_enhanced_pairwise import lb_enhanced_pairwise_cuda
@@ -106,9 +111,12 @@ def test_lb_enhanced_pairwise_kernel(dev, P, L, w, with_live):
         _check(got, want, exact=bands_only)
 
 
-@pytest.mark.parametrize("P,L,w", [(37, 33, 0), (37, 33, 1), (37, 33, 8),
-                                   (37, 33, 33), (20, 100, 25), (5, 513, 51),
-                                   (3, 1, 0), (6, 2, 5), (4, 700, 700)])
+DTW_SWEEP = [(37, 33, 0), (37, 33, 1), (37, 33, 8), (37, 33, 33),
+             (20, 100, 25), (5, 513, 51), (3, 1, 0), (6, 2, 5),
+             (4, 700, 700)]
+
+
+@pytest.mark.parametrize("P,L,w", DTW_SWEEP)
 def test_dtw_band_kernel_bit_equal_with_cutoffs(dev, P, L, w):
     a, b = _rand(dev, 7, P, L), _rand(dev, 8, P, L)
     exact = ref.dtw_band_ref(a, b, w)
@@ -123,6 +131,100 @@ def test_dtw_band_kernel_bit_equal_with_cutoffs(dev, P, L, w):
            ref.dtw_band_ref(a, b, w, cut, row_block=7), exact=True)
 
 
+@pytest.mark.parametrize("P,L,w", DTW_SWEEP)
+def test_stream_and_step_kernels_bit_equal_at_the_sweep(dev, P, L, w):
+    """K5 forced (``stream=True``) and K6 (``early_exit=False``) at K4's
+    sweep shapes, with and without cutoffs (every fifth slot -inf): equal
+    to the plain versions and to K4."""
+    a, b = _rand(dev, 7, P, L), _rand(dev, 8, P, L)
+    exact = ref.dtw_band_ref(a, b, w)
+    g = torch.Generator().manual_seed(9)
+    cut = exact * (0.5 + torch.rand(P, generator=g).to(dev))
+    cut[::5] = float("-inf")
+    for c in (None, cut):
+        k4 = dtw_band_cuda(a, b, w, c)
+        want = ref.dtw_band_ref(a, b, w, c)
+        _check(k4, want, exact=True)
+        _check(dtw_band_cuda(a, b, w, c, stream=True), want, exact=True)
+        _check(dtw_band_cuda(a, b, w, c, stream=True, row_block=7),
+               ref.dtw_band_ref(a, b, w, c, row_block=7), exact=True)
+        step = dtw_band_cuda(a, b, w, c, early_exit=False)
+        _check(step, ref.dtw_band_ref(a, b, w, c, row_block=1), exact=True)
+        _check(step, k4, exact=True)
+
+
+@pytest.mark.parametrize("with_cutoff", [False, True])
+def test_stream_kernel_loops_over_pairs_past_its_grid(dev, with_cutoff):
+    """P = 600 pairs, more than K5's persistent grid (2 blocks per SM), so
+    its blocks run several pairs in turn (the scratch re-initialised per
+    pair, -inf slots skipped): bit-equal to the plain version and to K4."""
+    P, L, w = 600, 97, 24
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert P > STREAM_BLOCKS_PER_SM * sms
+    a, b = _rand(dev, 18, P, L), _rand(dev, 19, P, L)
+    cut = None
+    if with_cutoff:
+        g = torch.Generator().manual_seed(20)
+        cut = ref.dtw_band_ref(a, b, w) * (
+            0.5 + torch.rand(P, generator=g).to(dev))
+        cut[::7] = float("-inf")
+    want = ref.dtw_band_ref(a, b, w, cut)
+    got = dtw_band_cuda(a, b, w, cut, stream=True)
+    _check(got, want, exact=True)
+    _check(got, dtw_band_cuda(a, b, w, cut), exact=True)
+    if with_cutoff:
+        assert torch.isposinf(got[::7]).all()
+        # cutoffs below a pair's DTW kill it too, some abandon mid-sweep
+        assert torch.isfinite(got).any()
+        assert torch.isposinf(got).sum() > cut[::7].numel()
+
+
+def test_stream_kernel_just_over_the_crossover(dev):
+    """wb = 14464 (w = L = 14465), the first band K4 cannot hold: the op
+    routes to K5, bit-equal to the plain version, a lone cutoff kills
+    one pair."""
+    L = 14465
+    assert dtw_band_route(L, L) == "stream"
+    assert dtw_band_route(L - 1, L - 1) == "resident"
+    a, b = _rand(dev, 15, 2, L), _rand(dev, 16, 2, L)
+    _build.reset_counts()
+    got = ops.dtw_band_op(a, b, L)
+    assert _build.counts()["dtw_band_stream"] == 1
+    assert _build.counts()["dtw_band"] == 0
+    want = ref.dtw_band_ref(a, b, L)
+    _check(got, want, exact=True)
+    cut = torch.stack([want[0] * 2, want[1] * 0.5])
+    got_c = ops.dtw_band_op(a, b, L, cut, early_exit=False)
+    _check(got_c, ref.dtw_band_ref(a, b, L, cut), exact=True)
+    assert torch.isfinite(got_c[0]) and torch.isposinf(got_c[1])
+
+
+def test_envelope_kernel_long_series_full_window(dev):
+    x = _rand(dev, 17, 3, 65536)
+    for w in (655, 65536):
+        u, lo = envelope_cuda(x, w)
+        ru, rlo = ref.envelope_ref(x, w)
+        _check(u, ru, exact=True)
+        _check(lo, rlo, exact=True)
+
+
+def test_nn_search_routes_long_full_window_dtw_to_the_stream_kernel(dev):
+    """L = 14500, w = L on a small store: every DTW of the search runs in
+    K5 (K4 never launches), and ids and distances equal the card's brute
+    force."""
+    ds = make_dataset(n_classes=2, n_train_per_class=8, n_test_per_class=1,
+                      length=14500, seed=5)
+    L = ds.length
+    cfg = EngineConfig(cascade=CascadeConfig(w=L, v=4), verify_chunk=4, k=1)
+    idx = build_index(ds.x_train, L, ds.y_train, device=dev)
+    _build.reset_counts()
+    res = nn_search(idx, ds.x_test, cfg)
+    counts = _build.counts()
+    assert counts["dtw_band_stream"] > 0 and counts["dtw_band"] == 0
+    bd, bi = brute_force(idx, ds.x_test, L, k=1)
+    assert torch.equal(bi, res.idx) and torch.equal(bd, res.dists)
+
+
 def test_wrappers_count_launches_and_refuse_bad_input(dev):
     _build.reset_counts()
     x = _rand(dev, 10, 4, 32)
@@ -131,6 +233,7 @@ def test_wrappers_count_launches_and_refuse_bad_input(dev):
     dtw_band_cuda(x, x, 3, torch.zeros(4, device=dev))
     assert _build.counts() == {"envelope": 1, "lb_enhanced": 0,
                                "lb_enhanced_pairwise": 0, "dtw_band": 2,
+                               "dtw_band_stream": 0, "dtw_band_step": 0,
                                "sketch_bound": 0, "lb_keogh": 0}
     with pytest.raises(ValueError, match="float32"):
         dtw_band_cuda(x.double(), x.double(), 3)
