@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py            # one CUDA card, from the repo root
     python3 chip_smoke.py --profile  # also profile each path's warm search
+                                     # and one request of each LM
 
 1. prints the card (``nvidia-smi`` name and power limit) and builds the
-   seven CUDA sources from ``src/repro_torch/csrc`` (``nvcc``,
+   nine CUDA sources of K1-K10 from ``src/repro_torch/csrc`` (``nvcc``,
    ``sm_90a``, one process per source);
 2. drives the main path once at full size -- ``build_index`` ->
    ``classify`` (which runs ``nn_search``, guards on by default) on
@@ -38,7 +39,23 @@
    a block's shared memory), so K5 must have launched and K4 not; ids
    and distances equal the kernel brute force for every query and no
    guard tripped;
-7. holds each kernel against its plain PyTorch version on the card: at
+7. LM serve phase, at full width with random weights drawn on the card
+   from a seed (bf16 compute and KV cache), each request in its own
+   launch-count window: gemma2-2b (26 layers) scores 2 prompts of 8192
+   with ``LM.prefill`` into a full cache (K9 in every layer: 26
+   launches), then ``greedy_decode`` continues 4 prompts of 1024 by 32
+   tokens (cache S + 32, so K9 never runs); falcon-mamba-7b (64 layers)
+   ``greedy_decode``s 4 prompts of 2048 by 32 tokens and ``LM.prefill``s
+   the same prompts (K10: 64 per prefill, 0 per step).  Checks: the
+   launch counts, finite logits and tokens in ``[0, vocab)``; each
+   kernel-routed prefill against the plain route (``attn_impl=
+   "chunked"``, ``ssm_impl="scan"``) and each model's first decode step
+   against a full-cache prefill of prompt + token, in f32 compute to
+   rtol 1e-3, atol 1e-3 and in bf16 to a fixed largest difference per
+   model (see ``LM_BF16_MAX_ABS``); prints one ``lm request``
+   line per request (prefill seconds, prompt and decode tokens/s,
+   launches, peak device memory, the checks' readings);
+8. holds each kernel against its plain PyTorch version on the card: at
    the paths' recorded inputs (timed with CUDA events) and over a sweep of
    small shapes (w in {0, 1, L/4, L}, odd L, cutoffs that kill pairs,
    ``live`` masks with all-dead tiles, ragged sizes); K1, K2 (both forms)
@@ -50,8 +67,14 @@
    bands-only LB_ENHANCED and the sketch bound must be bit-equal, with
    the same +-inf positions; the full LB_ENHANCED forms and LB_Keogh
    agree to rtol 1e-5, atol 1e-6 (their L-term sums run in another
-   order);
-8. prints one ``{"kernels": [...]}`` line and, last, the device line
+   order); K9 at a local and a global layer of the scoring prefill (and
+   without the cap, beside ``F.scaled_dot_product_attention`` as the
+   library time) and over a sweep (g in {1, 2, 8}, D in {64, 128, 256},
+   causal and not, window, cap, ragged S, f32 and bf16), to rtol 1e-4,
+   atol 1e-5 in f32 and 1e-2 in bf16; K10 at a layer of the falcon
+   prefill and over a sweep (N in {4, 16, 32, 64}, ragged S and C,
+   nonzero h0), to rtol 1e-5, atol 1e-6;
+9. prints one ``{"kernels": [...]}`` line and, last, the device line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line.  The script imports
@@ -61,6 +84,7 @@ nothing of the JAX package; without a CUDA device it exits 1.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -72,9 +96,10 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s, FP32 non-tensor
-# FLOP/s
+# FLOP/s, bf16 dense tensor-core FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
+PEAK_BF16 = 989e12
 
 # main-path configuration: the store is ~100 MB of f32 on the card with
 # its two envelopes, the scale of the largest UCR training sets
@@ -91,6 +116,27 @@ SKETCH = dict(n_classes=8, n_train_per_class=8192, n_test_per_class=32,
 # a block's shared memory, so every DTW runs in K5
 LONG = dict(n_classes=8, n_train_per_class=128, n_test_per_class=2,
             length=17984, seed=7)
+# LM serve phase: the repo's gemma2-2b and falcon-mamba-7b configurations
+# at full width (all 26 and 64 layers), random weights drawn on the card
+# from LM_SEED, bf16 compute and KV cache.  The scoring request is the
+# repo's prefill_32k shape (32 x 32768) cut to 2 x 8192: twice gemma2's
+# 4096 window, so its 13 local layers mask and skip key tiles.
+LM_SEED = 0
+LM_SCORE = dict(batch=2, prompt=8192)
+LM_GEMMA = dict(batch=4, prompt=1024, new=32)
+LM_FALCON = dict(batch=4, prompt=2048, new=32)
+# Route and decode-step checks.  In f32 compute (the same f32 weights) the
+# kernel route and the plain route differ only in the order of f32 sums
+# and must agree to LM_F32_TOL.  In bf16 compute (the served
+# configuration) every difference of summation order is rounded to bf16
+# in every layer and carried through the depth: at full width two plain
+# routes that differ only in their chunk sizes (KV chunk 1024 and 512,
+# scan chunk 256 and 64) differ by 0.0469 (gemma2-2b) and 0.172
+# (falcon-mamba-7b) in the last-token logits (PERF.md, section 6).  So a
+# bf16 difference is held to a fixed largest absolute difference per
+# model, about three times those readings.
+LM_F32_TOL = dict(rtol=1e-3, atol=1e-3)
+LM_BF16_MAX_ABS = {"gemma2-2b": 0.15, "falcon-mamba-7b": 0.5}
 V = 4
 K = 1
 VERIFY_CHUNK = 32
@@ -98,6 +144,26 @@ VERIFY_CHUNK = 32
 LONG_SAMPLE = 32
 
 RTOL, ATOL = 1e-5, 1e-6
+# K9 against its plain version, by input type: f32 sums in another
+# order; bf16 outputs may round one bf16 ulp apart
+K9_TOL = {"float32": dict(rtol=1e-4, atol=1e-5),
+          "bfloat16": dict(rtol=1e-2, atol=1e-2)}
+# K9 sweep: g in {1, 2, 8}, D in {64, 128, 256}, causal and not, window,
+# cap, ragged and unequal Sq / Skv, f32 and bf16
+FLASH_SWEEP = [
+    # B, Sq, Skv, Hq, Hkv, D, causal, window, cap, dtype
+    (2, 40, 40, 4, 4, 64, True, None, None, "float32"),
+    (1, 77, 77, 8, 1, 128, True, 16, 30.0, "float32"),
+    (2, 100, 70, 2, 1, 256, False, None, None, "float32"),
+    (1, 33, 90, 8, 4, 64, False, 20, 50.0, "float32"),
+    (2, 129, 129, 16, 2, 128, True, None, 50.0, "bfloat16"),
+    (1, 300, 300, 8, 4, 256, True, 64, 50.0, "bfloat16"),
+    (3, 65, 65, 2, 2, 96, False, None, None, "bfloat16"),
+    (1, 1, 17, 8, 4, 256, False, None, 50.0, "float32"),
+]
+# K10 sweep: N in {4, 16, 32, 64}, S and C multiples of no tile, h0 nonzero
+MAMBA_SWEEP = [(2, 33, 70, 4), (3, 100, 300, 16), (1, 17, 129, 64),
+               (2, 1, 5, 16), (1, 50, 128, 32)]
 
 
 class SmokeFailure(Exception):
@@ -149,16 +215,19 @@ def timed(fn):
     return res, start.elapsed_time(end)
 
 
-def compare(name: str, got, want, exact: bool) -> float:
-    """Max abs difference of finite entries; the +-inf positions must
-    match.  ``exact`` demands equal values (``torch.equal``; -0.0 == 0.0),
-    otherwise rtol 1e-5, atol 1e-6."""
+def compare(name: str, got, want, exact: bool, rtol: float = RTOL,
+            atol: float = ATOL) -> float:
+    """Max abs difference of finite entries (compared in float32); the
+    +-inf positions must match.  ``exact`` demands equal values
+    (``torch.equal``; -0.0 == 0.0), otherwise ``rtol``, ``atol`` (default
+    1e-5, 1e-6)."""
     import torch
 
     got = [got] if isinstance(got, torch.Tensor) else list(got)
     want = [want] if isinstance(want, torch.Tensor) else list(want)
     err = 0.0
     for g, w in zip(got, want):
+        g, w = g.float(), w.float()
         check(g.shape == w.shape, f"{name}: shape {tuple(g.shape)} != "
               f"{tuple(w.shape)}")
         check(not torch.isnan(g).any().item(), f"{name}: NaN in output")
@@ -170,8 +239,10 @@ def compare(name: str, got, want, exact: bool) -> float:
             check(torch.equal(g[fin], w[fin]),
                   f"{name}: not bit-equal to the plain version")
         else:
-            check(torch.allclose(g[fin], w[fin], rtol=RTOL, atol=ATOL),
-                  f"{name}: outside rtol={RTOL}, atol={ATOL}")
+            if not torch.allclose(g[fin], w[fin], rtol=rtol, atol=atol):
+                raise SmokeFailure(
+                    f"{name}: outside rtol={rtol}, atol={atol} (max abs "
+                    f"err {(g[fin] - w[fin]).abs().max().item()})")
         if fin.any():
             err = max(err, (g[fin] - w[fin]).abs().max().item())
     return err
@@ -179,24 +250,26 @@ def compare(name: str, got, want, exact: bool) -> float:
 
 class Recorder:
     """Wraps a kernel wrapper in ``kernels.ops`` to keep the inputs of its
-    largest call on a path (the count stays the wrapper's own), and with
-    ``keep_all`` the inputs of every call.  It keeps references, not
-    copies, so the timed path does no extra work: the path makes every
-    kernel input afresh and never writes to one after the launch."""
+    largest call on a path (the count stays the wrapper's own), and in
+    ``calls`` the inputs of its first ``keep`` calls (``None``: of every
+    call).  It keeps references, not copies, so the timed path does no
+    extra work: the path makes every kernel input afresh and never writes
+    to one after the launch."""
 
-    def __init__(self, ops_module, attr: str, keep_all: bool = False):
+    def __init__(self, ops_module, attr: str, keep: int | None = 0):
         self.ops, self.attr = ops_module, attr
         self.orig = getattr(ops_module, attr)
         self.args = self.kwargs = None
         self.size = -1
-        self.calls = [] if keep_all else None
+        self.keep = keep
+        self.calls = []
         setattr(ops_module, attr, self)
 
     def __call__(self, *args, **kwargs):
         size = args[0].numel()
         if size > self.size:
             self.size, self.args, self.kwargs = size, args, kwargs
-        if self.calls is not None:
+        if self.keep is None or len(self.calls) < self.keep:
             self.calls.append(args)
         return self.orig(*args, **kwargs)
 
@@ -430,7 +503,7 @@ def run_long_path(torch, dev):
     recs = {n: Recorder(ops, n) for n in
             ("envelope_cuda", "lb_enhanced_cuda",
              "lb_enhanced_pairwise_cuda")}
-    recs["dtw_band_cuda"] = Recorder(ops, "dtw_band_cuda", keep_all=True)
+    recs["dtw_band_cuda"] = Recorder(ops, "dtw_band_cuda", keep=None)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.synchronize()
@@ -608,34 +681,360 @@ def check_search(torch, ds, index, cfg, res):
           f"{t2 - t1:.3f} s)")
 
 
-def profile_search(torch, ds, index, cfg, label: str) -> None:
-    """``--profile``: one warm ``nn_search`` under ``torch.profiler``;
+def profile_call(torch, fn, label: str) -> None:
+    """``--profile``: one warm call of ``fn`` under ``torch.profiler``;
     prints the wall time, the summed device time of every kernel (the
     device's busy time: one stream, so launches do not overlap) and the
-    kernels that took most of it."""
+    kernels that took most of it.  Only device-side entries count: an
+    ``aten::`` op's device time is its kernels' again, and "Command
+    Buffer Full" marks a stalled launch queue, not device work."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.search import nn_search
-
-    nn_search(index, ds.x_test, cfg)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        nn_search(index, ds.x_test, cfg)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = []
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0)
-        if us > 0:
+        if (us > 0 and getattr(e, "device_type", None) == DeviceType.CUDA
+                and e.key != "Command Buffer Full"):
             rows.append((e.key[:60], e.count, us / 1e3))
     rows.sort(key=lambda r: -r[2])
     busy = sum(r[2] for r in rows) / 1e3
-    print(f"profile ({label}, warm nn_search, profiled): " + json.dumps({
+    print(f"profile ({label}, profiled): " + json.dumps({
         "wall_s": wall, "device_busy_s": busy,
         "idle_share": 1.0 - busy / wall,
         "top_kernels_name_count_ms": rows[:12]}))
+
+
+def profile_search(torch, ds, index, cfg, label: str) -> None:
+    """``--profile``: one warm ``nn_search`` of a search path."""
+    from repro_torch.search import nn_search
+
+    profile_call(torch, lambda: nn_search(index, ds.x_test, cfg),
+                 f"{label}, warm nn_search")
+
+
+def lm_request_line(name: str, req: dict) -> None:
+    import torch
+
+    req["memory_allocated_after"] = torch.cuda.memory_allocated()
+    print(f"lm request {name}: " + json.dumps(req))
+
+
+def lm_weights(torch, dev, arch: str):
+    """A configuration at full width and depth, f32 weights drawn on the
+    card from ``LM_SEED`` and their bf16 compute copy, made once, and the
+    generator (which then draws the prompts)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import LM
+
+    cfg = ARCHS[arch]
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED)
+    t0 = time.perf_counter()
+    params = LM(cfg).init(gen, device=dev)
+    cparams = LM(cfg).compute_params(params)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in torch.utils._pytree.tree_leaves(params))
+    print(f"lm weights {arch}: " + json.dumps({
+        "n_layers": cfg.n_layers, "params": n,
+        "config_n_params": cfg.n_params(), "f32_bytes": 4 * n,
+        "init_and_cast_s": time.perf_counter() - t0,
+        "memory_allocated": torch.cuda.memory_allocated()}))
+    return cfg, params, cparams, gen
+
+
+def lm_models(torch, cfg, dtype) -> dict:
+    """The kernel route and the plain route, computing (and caching) in
+    ``dtype``."""
+    from repro_torch.models import LM
+
+    kw = dict(compute_dtype=dtype, cache_dtype=dtype)
+    return {"kernel": LM(cfg, attn_impl="kernel", ssm_impl="kernel", **kw),
+            "plain": LM(cfg, **kw)}
+
+
+def lm_prefill(torch, model, cparams, tokens, max_len=None):
+    """One ``LM.prefill`` with the launch counts set to 0 just before and
+    read just after; returns (logits, caches, seconds, counts, peak
+    bytes)."""
+    from repro_torch.kernels import _build
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    logits, caches, _ = model.prefill(cparams, {"tokens": tokens},
+                                      max_len=max_len)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    check(torch.isfinite(logits).all().item(), "non-finite prefill logits")
+    return (logits, caches, secs, _build.counts(),
+            torch.cuda.max_memory_allocated())
+
+
+def lm_greedy(torch, model, cparams, prompt, n_new: int, vocab: int):
+    """``greedy_decode`` with the counts set to 0 just before and read
+    just after; checks the tokens.  Its prefill is timed on its own just
+    before, as ``greedy_decode`` runs it (a ``DecodeSession`` with a cache
+    of S + ``n_new``), and the steps' seconds are the rest of
+    ``greedy_decode``'s.  Returns (tokens, timings, counts, peak bytes)."""
+    from repro_torch.kernels import _build
+    from repro_torch.serve import DecodeSession, greedy_decode
+
+    sess = DecodeSession(model, cparams, max_len=prompt.shape[1] + n_new)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sess.prefill({"tokens": prompt})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    del sess
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    toks = greedy_decode(model, cparams, prompt, n_new)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    counts = _build.counts()
+    check(toks.shape == (prompt.shape[0], n_new), "greedy_decode shape")
+    check(bool(((toks >= 0) & (toks < vocab)).all()),
+          "greedy_decode: a token outside [0, vocab)")
+    timings = {"greedy_decode_s": total_s, "prefill_s": prefill_s,
+               "decode_s": total_s - prefill_s}
+    return toks, timings, counts, torch.cuda.max_memory_allocated()
+
+
+def lm_first_step(torch, model, cparams, prompt, kname: str,
+                  n_layers: int, prefill_launches: int):
+    """A ``DecodeSession`` prefill (``prefill_launches`` of ``kname``) and
+    its first step (no launch), and a full-cache prefill of prompt + token
+    (the kernel once per layer).  Returns (step logits, prefill
+    logits)."""
+    from repro_torch.kernels import _build
+    from repro_torch.serve import DecodeSession
+
+    sess = DecodeSession(model, cparams, max_len=prompt.shape[1] + 1)
+    _build.reset_counts()
+    logits0 = sess.prefill({"tokens": prompt})
+    torch.cuda.synchronize()
+    check(_build.counts()[kname] == prefill_launches,
+          f"session prefill: {kname} launched {_build.counts()[kname]} "
+          f"times, expected {prefill_launches}")
+    tok = torch.argmax(logits0, -1)[:, None]
+    _build.reset_counts()
+    step = sess.step(tok)
+    torch.cuda.synchronize()
+    check(sum(_build.counts().values()) == 0,
+          f"a decode step launched a kernel: {_build.counts()}")
+    check(torch.isfinite(step).all().item(), "non-finite step logits")
+    del sess
+    full = torch.cat([prompt, tok.to(prompt.dtype)], dim=1)
+    want, _, _, counts, _ = lm_prefill(torch, model, cparams, full)
+    check(counts[kname] == n_layers, f"full-cache prefill: {kname} "
+          f"launched {counts[kname]} times, expected {n_layers}")
+    return step, want
+
+
+def max_abs(a, b) -> float:
+    return (a.float() - b.float()).abs().max().item()
+
+
+def bf16_check(name: str, cfg, err: float) -> None:
+    """A bf16 difference against the model's ``LM_BF16_MAX_ABS``."""
+    limit = LM_BF16_MAX_ABS[cfg.name]
+    check(err <= limit, f"{name}: max abs difference {err} > {limit}")
+
+
+def lm_route_checks(torch, label: str, cfg, params, cparams, tokens,
+                    kname: str, logits16):
+    """The kernel route's bf16 prefill logits (``logits16``) against the
+    plain route's (held to ``LM_BF16_MAX_ABS``), and the same prefill in
+    f32 compute through both routes (held to ``LM_F32_TOL``).  Returns
+    the readings."""
+    m16, m32 = lm_models(torch, cfg, torch.bfloat16), lm_models(
+        torch, cfg, torch.float32)
+    plain, _, plain_s, counts, _ = lm_prefill(torch, m16["plain"], cparams,
+                                              tokens)
+    check(counts[kname] == 0, f"the plain route launched {kname}")
+    err16 = max_abs(logits16, plain)
+    bf16_check(f"{label} bf16 prefill, kernel vs plain route", cfg, err16)
+    k32, _, _, counts, _ = lm_prefill(torch, m32["kernel"], params, tokens)
+    check(counts[kname] == cfg.n_layers, f"f32 prefill: {kname} launched "
+          f"{counts[kname]} times, expected {cfg.n_layers}")
+    p32 = lm_prefill(torch, m32["plain"], params, tokens)[0]
+    err32 = compare(f"{label} f32 prefill, kernel vs plain route", k32,
+                    p32, exact=False, **LM_F32_TOL)
+    return {"plain_route_prefill_s": plain_s,
+            "bf16_vs_plain_max_abs_err": err16,
+            "bf16_logits_max_abs": plain.abs().max().item(),
+            "bf16_argmax_equal_to_plain": bool(torch.equal(
+                logits16.argmax(-1), plain.argmax(-1))),
+            "f32_vs_plain_max_abs_err": err32}
+
+
+def lm_step_checks(torch, label: str, cfg, params, cparams, prompt,
+                   kname: str, prefill_launches: int) -> dict:
+    """The first decode step against a full-cache prefill of prompt +
+    token: in bf16 held to ``LM_BF16_MAX_ABS``, in f32 compute to
+    ``LM_F32_TOL``."""
+    step, want = lm_first_step(
+        torch, lm_models(torch, cfg, torch.bfloat16)["kernel"], cparams,
+        prompt, kname, cfg.n_layers, prefill_launches)
+    err16 = max_abs(step, want)
+    bf16_check(f"{label} bf16 first decode step vs full-cache prefill",
+               cfg, err16)
+    step, want = lm_first_step(
+        torch, lm_models(torch, cfg, torch.float32)["kernel"], params,
+        prompt, kname, cfg.n_layers, prefill_launches)
+    err32 = compare(f"{label} f32 first decode step vs full-cache prefill",
+                    step, want, exact=False, **LM_F32_TOL)
+    return {"bf16_first_step_vs_full_prefill_max_abs_err": err16,
+            "f32_first_step_vs_full_prefill_max_abs_err": err32}
+
+
+def run_lm_phase(torch, dev, profile: bool):
+    """The LM serve phase: gemma2-2b's scoring prefill and greedy decode,
+    then falcon-mamba-7b's greedy decode and prefill, at full width in
+    bf16, each request in its own launch-count window, with the route and
+    first-step checks of ``lm_route_checks`` and ``lm_step_checks``.
+    Returns the windows' counts and the recorded K9 (a local and a global
+    layer) and K10 inputs."""
+    from repro_torch.kernels import ops
+
+    windows, recs = {}, {}
+    tol = {"f32": LM_F32_TOL, "bf16_max_abs": LM_BF16_MAX_ABS}
+
+    # ---- gemma2-2b: prompt scoring (full cache, K9 in every layer) -----
+    cfg, params, cp, gen = lm_weights(torch, dev, "gemma2-2b")
+    kern = lm_models(torch, cfg, torch.bfloat16)["kernel"]
+    tokens = torch.randint(0, cfg.vocab, (LM_SCORE["batch"],
+                                          LM_SCORE["prompt"]),
+                           generator=gen, device=dev)
+    rec = Recorder(ops, "flash_attention_cuda", keep=2)
+    logits, caches, secs, counts, peak = lm_prefill(torch, kern, cp, tokens)
+    rec.restore()
+    recs["flash_attention"] = rec.calls         # layer 0 local, 1 global
+    del rec, caches
+    windows["lm_score"] = counts
+    check(counts["flash_attention"] == cfg.n_layers,
+          f"scoring prefill: K9 launched {counts['flash_attention']} "
+          f"times, expected {cfg.n_layers}")
+    check(logits.shape == (LM_SCORE["batch"], cfg.vocab), "scoring logits")
+    route = lm_route_checks(torch, "gemma2-2b scoring", cfg, params, cp,
+                            tokens, "flash_attention", logits)
+    lm_request_line("gemma2-2b score", {
+        "model": cfg.name, "B": LM_SCORE["batch"],
+        "prompt": LM_SCORE["prompt"], "new_tokens": 0,
+        "call": "LM.prefill(params, {tokens}), full cache",
+        "prefill_s": secs, "prompt_tokens_per_s": tokens.numel() / secs,
+        "decode_tokens_per_s": None,
+        "launches": {k: v for k, v in counts.items() if v},
+        "max_memory_allocated": peak, **route, "tol": tol})
+    if profile:
+        profile_call(torch, lambda: kern.prefill(cp, {"tokens": tokens}),
+                     "gemma2-2b scoring prefill")
+    del logits, tokens
+
+    # ---- gemma2-2b: greedy decode (prefill into S + 32: no K9) ---------
+    prompt = torch.randint(0, cfg.vocab, (LM_GEMMA["batch"],
+                                          LM_GEMMA["prompt"]),
+                           generator=gen, device=dev)
+    toks, tm, counts, peak = lm_greedy(torch, kern, cp, prompt,
+                                       LM_GEMMA["new"], cfg.vocab)
+    windows["lm_gemma_decode"] = counts
+    check(counts["flash_attention"] == 0, "gemma2-2b greedy_decode "
+          f"launched K9 {counts['flash_attention']} times, expected 0")
+    steps = lm_step_checks(torch, "gemma2-2b", cfg, params, cp, prompt,
+                           "flash_attention", 0)
+    lm_request_line("gemma2-2b greedy_decode", {
+        "model": cfg.name, "B": LM_GEMMA["batch"],
+        "prompt": LM_GEMMA["prompt"], "new_tokens": LM_GEMMA["new"],
+        "call": "greedy_decode", **tm,
+        "prompt_tokens_per_s": prompt.numel() / tm["prefill_s"],
+        "decode_tokens_per_s":
+            LM_GEMMA["batch"] * (LM_GEMMA["new"] - 1) / tm["decode_s"],
+        "launches": {k: v for k, v in counts.items() if v},
+        "max_memory_allocated": peak, **steps, "tol": tol,
+        "tokens_row0": toks[0].tolist()})
+    del kern, params, cp, prompt, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- falcon-mamba-7b: greedy decode, then LM.prefill ---------------
+    cfg, params, cp, gen = lm_weights(torch, dev, "falcon-mamba-7b")
+    kern = lm_models(torch, cfg, torch.bfloat16)["kernel"]
+    prompt = torch.randint(0, cfg.vocab, (LM_FALCON["batch"],
+                                          LM_FALCON["prompt"]),
+                           generator=gen, device=dev)
+    rec = Recorder(ops, "mamba_scan_cuda")
+    toks, tm, counts, peak = lm_greedy(torch, kern, cp, prompt,
+                                       LM_FALCON["new"], cfg.vocab)
+    rec.restore()
+    recs["mamba_scan"] = rec.args
+    del rec
+    windows["lm_falcon_decode"] = counts
+    check(counts["mamba_scan"] == cfg.n_layers, "falcon greedy_decode: "
+          f"K10 launched {counts['mamba_scan']} times, expected "
+          f"{cfg.n_layers} (the prefill's; 0 per step)")
+    decode_line = {
+        "model": cfg.name, "B": LM_FALCON["batch"],
+        "prompt": LM_FALCON["prompt"], "new_tokens": LM_FALCON["new"],
+        "call": "greedy_decode", **tm,
+        "prompt_tokens_per_s": prompt.numel() / tm["prefill_s"],
+        "decode_tokens_per_s":
+            LM_FALCON["batch"] * (LM_FALCON["new"] - 1) / tm["decode_s"],
+        "launches": {k: v for k, v in counts.items() if v},
+        "max_memory_allocated": peak, "tokens_row0": toks[0].tolist()}
+    logits, caches, secs, counts, peak = lm_prefill(torch, kern, cp, prompt)
+    del caches
+    windows["lm_falcon_prefill"] = counts
+    check(counts["mamba_scan"] == cfg.n_layers, "falcon prefill: K10 "
+          f"launched {counts['mamba_scan']} times, expected {cfg.n_layers}")
+    check(logits.shape == (LM_FALCON["batch"], cfg.vocab),
+          "falcon prefill logits")
+    route = lm_route_checks(torch, "falcon-mamba-7b", cfg, params, cp,
+                            prompt, "mamba_scan", logits)
+    steps = lm_step_checks(torch, "falcon-mamba-7b", cfg, params, cp,
+                           prompt, "mamba_scan", cfg.n_layers)
+    lm_request_line("falcon-mamba-7b greedy_decode",
+                    {**decode_line, **steps, "tol": tol})
+    lm_request_line("falcon-mamba-7b prefill", {
+        "model": cfg.name, "B": LM_FALCON["batch"],
+        "prompt": LM_FALCON["prompt"], "new_tokens": 0,
+        "call": "LM.prefill(params, {tokens}), the same prompts",
+        "prefill_s": secs, "prompt_tokens_per_s": prompt.numel() / secs,
+        "decode_tokens_per_s": None,
+        "launches": {k: v for k, v in counts.items() if v},
+        "max_memory_allocated": peak, **route, "tol": tol})
+    if profile:
+        profile_call(torch, lambda: kern.prefill(cp, {"tokens": prompt}),
+                     "falcon-mamba-7b prefill")
+    del kern, params, cp, prompt, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return windows, recs
+
+
+def k9_tol(x) -> dict:
+    """K9's tolerance for inputs of ``x``'s type."""
+    return K9_TOL[str(x.dtype).removeprefix("torch.")]
+
+
+def attn_pairs(Sq: int, Skv: int, causal: bool, window: int | None) -> int:
+    """Unmasked (query, key) pairs of one head under implicit positions:
+    key j < Skv, j <= i if causal, i - j < window if windowed."""
+    n = 0
+    for i in range(Sq):
+        lo = max(0, i - window + 1) if window is not None else 0
+        hi = min(Skv - 1, i) if causal else Skv - 1
+        n += max(0, hi - lo + 1)
+    return n
 
 
 def band_cells(L: int, w: int) -> int:
@@ -643,8 +1042,11 @@ def band_cells(L: int, w: int) -> int:
     return L * (2 * wb + 1) - wb * (wb + 1)
 
 
-def bound(bytes_: float, ops_: float) -> tuple[float, str]:
-    tb, to = bytes_ / PEAK_BYTES * 1e3, ops_ / PEAK_FP32 * 1e3
+def bound(bytes_: float, ops_: float,
+          peak_ops: float = PEAK_FP32) -> tuple[float, str]:
+    """The least milliseconds for ``bytes_`` moved at the HBM rate and
+    ``ops_`` at ``peak_ops`` (default the FP32 non-tensor rate)."""
+    tb, to = bytes_ / PEAK_BYTES * 1e3, ops_ / peak_ops * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -727,6 +1129,10 @@ def kernel_phases(torch, dev, recs, windows, sk_index, sk_queries,
     err_long = compare("envelope (long path)", envelope_cuda(bl, wl),
                        ref.envelope_ref(bl, wl), exact=True)
     stacked = torch.stack([b, -b])
+    # max_pool1d pads by at most half its window; w = L - 1 gives the
+    # same envelopes as w = L (both windows cover the whole series)
+    wp = min(wl, bl.shape[1] - 1)
+    stacked_l = torch.stack([bl, -bl])
     bms, by = bound(12.0 * N * L, 6.0 * N * L)
     out.append(dict(
         name="envelope", route="cuda", source="src/repro_torch/csrc/envelope.cu",
@@ -740,7 +1146,11 @@ def kernel_phases(torch, dev, recs, windows, sk_index, sk_queries,
         shape=f"N={N} L={L} w={w}",
         long_path_shape=f"N={bl.shape[0]} L={bl.shape[1]} w={wl}",
         long_path_ms=time_ms(lambda: envelope_cuda(bl, wl), 5),
-        long_path_bound_ms=bound(12.0 * bl.numel(), 6.0 * bl.numel())[0]))
+        long_path_bound_ms=bound(12.0 * bl.numel(), 6.0 * bl.numel())[0],
+        long_path_plain_ms=time_ms(lambda: ref.envelope_ref(bl, wl), 3,
+                                   warmup=1),
+        long_path_library_ms=time_ms(lambda: F.max_pool1d(
+            stacked_l, 2 * wp + 1, stride=1, padding=wp), 2, warmup=1)))
 
     # ---- K2 cross-block LB_ENHANCED (bands-only on the path) --------------
     args = recs["lb_enhanced_cuda"].args
@@ -1046,6 +1456,132 @@ def kernel_phases(torch, dev, recs, windows, sk_index, sk_queries,
         plain_ms=time_ms(lambda: ref.lb_keogh_ref(qk, uk, lk), 3),
         bound_ms=bms, bound_by=by, library_ms=None,
         shape=f"Q={Q} C={C} L={L} w={main_idx.w}"))
+
+    return out
+
+
+def lm_kernel_phases(torch, dev, windows, lm_recs):
+    """K9 and K10 against their plain versions at the LM phase's recorded
+    inputs (timed) and over their sweeps.  Returns their ``kernels``
+    records; ``launches`` sums the LM requests' windows."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.mamba_scan import mamba_scan_cuda
+
+    def path_launches(kname: str) -> dict:
+        per = {f"{path}_path_launches": counts[kname]
+               for path, counts in windows.items()}
+        return dict(launches=sum(per.values()), **per)
+
+    gen = torch.Generator(device="cpu").manual_seed(12)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(dev)
+
+    out = []
+
+    # ---- K9 flash attention (gemma2-2b's scoring prefill) -----------------
+
+    (ql, kl, vl, cl, wl9, capl), (qg, kg, vg, cg, wg9, capg) = \
+        lm_recs["flash_attention"]
+    check(wl9 is not None and wg9 is None,
+          "the recorded K9 calls are not a local and a global layer")
+    err = max(
+        compare("flash_attention (path, global layer)",
+                flash_attention_cuda(qg, kg, vg, cg, wg9, capg),
+                ref.flash_attention_ref(qg, kg, vg, cg, wg9, capg),
+                exact=False, **k9_tol(qg)),
+        compare("flash_attention (path, local layer)",
+                flash_attention_cuda(ql, kl, vl, cl, wl9, capl),
+                ref.flash_attention_ref(ql, kl, vl, cl, wl9, capl),
+                exact=False, **k9_tol(ql)))
+    err_nocap = compare(
+        "flash_attention (path, global layer, no cap)",
+        flash_attention_cuda(qg, kg, vg, cg, wg9, None),
+        ref.flash_attention_ref(qg, kg, vg, cg, wg9, None), exact=False,
+        **k9_tol(qg))
+    for (Bs, Sq, Skv, Hq, Hkv, D, causal, win, cap, dt) in FLASH_SWEEP:
+        dt = getattr(torch, dt)
+        qs = randn(Bs, Sq, Hq, D).to(dt)
+        ks, vs = randn(Bs, Skv, Hkv, D).to(dt), randn(Bs, Skv, Hkv, D).to(dt)
+        compare(f"flash_attention sweep {(Bs, Sq, Skv, Hq, Hkv, D)}",
+                flash_attention_cuda(qs, ks, vs, causal, win, cap),
+                ref.flash_attention_ref(qs, ks, vs, causal, win, cap),
+                exact=False, **k9_tol(qs))
+
+    def k9_bound(q, k, causal, window):
+        B9, Sq9, Hq9, D9 = q.shape
+        pairs = attn_pairs(Sq9, k.shape[1], causal, window)
+        nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+        return bound(nbytes, 4.0 * B9 * Hq9 * D9 * pairs, PEAK_BF16)
+
+    bms, by = k9_bound(qg, kg, cg, wg9)
+    qt, kt, vt = (x.transpose(1, 2) for x in (qg, kg, vg))
+    out.append(dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:119",
+        **path_launches("flash_attention"), max_abs_err=err,
+        ms=time_ms(lambda: flash_attention_cuda(qg, kg, vg, cg, wg9, capg),
+                   5),
+        plain_ms=time_ms(lambda: ref.flash_attention_ref(qg, kg, vg, cg,
+                                                         wg9, capg), 3,
+                         warmup=1),
+        bound_ms=bms, bound_by=by,
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), 5),
+        shape=f"B={qg.shape[0]} S={qg.shape[1]} Hq={qg.shape[2]} "
+              f"Hkv={kg.shape[2]} D={qg.shape[3]} {qg.dtype} causal "
+              f"cap={capg} (a global layer)",
+        bound_peak="bf16 dense tensor 989 TFLOP/s, HBM 3.35 TB/s",
+        library_call="F.scaled_dot_product_attention(is_causal=True, "
+                     "enable_gqa=True) at the same inputs without the cap "
+                     "(SDPA has no soft cap)",
+        nocap_ms=time_ms(lambda: flash_attention_cuda(qg, kg, vg, cg, wg9,
+                                                      None), 5),
+        nocap_max_abs_err=err_nocap,
+        local_layer_shape=f"window={wl9} cap={capl}",
+        local_layer_ms=time_ms(
+            lambda: flash_attention_cuda(ql, kl, vl, cl, wl9, capl), 5),
+        local_layer_bound_ms=k9_bound(ql, kl, cl, wl9)[0],
+        tol=K9_TOL))
+
+    # ---- K10 selective scan (falcon-mamba-7b's prefill) -------------------
+    args = lm_recs["mamba_scan"]
+    delta = args[0]
+    Bs, S, C = delta.shape
+    N = args[2].shape[1]
+    y, h = mamba_scan_cuda(*args)
+    ry, rh = ref.mamba_scan_ref(*args)
+    err = compare("mamba_scan (path)", (y, h), (ry, rh), exact=False)
+    bit_equal = bool(torch.equal(y, ry) and torch.equal(h, rh))
+    sweep_bit_equal = True
+    for (Bs_, S_, C_, N_) in MAMBA_SWEEP:
+        sw = (torch.rand(Bs_, S_, C_, generator=gen).to(dev) * 0.1,
+              randn(Bs_, S_, C_),
+              -torch.rand(C_, N_, generator=gen).to(dev) * 3,
+              randn(Bs_, S_, N_), randn(Bs_, S_, N_), randn(Bs_, C_, N_))
+        got, want = mamba_scan_cuda(*sw), ref.mamba_scan_ref(*sw)
+        compare(f"mamba_scan sweep {(Bs_, S_, C_, N_)}", got, want,
+                exact=False)
+        sweep_bit_equal &= all(torch.equal(g, w) for g, w in zip(got, want))
+    # inputs and outputs once: delta, u, B, C rows, y; A, h0, hT
+    bms, by = bound(4.0 * (Bs * S * (2 * C + 2 * N) + Bs * S * C + C * N
+                           + 2 * Bs * C * N),
+                    7.0 * Bs * S * C * N + Bs * S * C)
+    out.append(dict(
+        name="mamba_scan", route="cuda",
+        source="src/repro_torch/csrc/mamba_scan.cu",
+        replaces="src/repro/kernels/mamba_scan.py:89",
+        **path_launches("mamba_scan"), max_abs_err=err,
+        ms=time_ms(lambda: mamba_scan_cuda(*args), 10),
+        plain_ms=time_ms(lambda: ref.mamba_scan_ref(*args), 2, warmup=1),
+        bound_ms=bms, bound_by=by, library_ms=None,
+        shape=f"B={Bs} S={S} C={C} N={N} f32 (a layer of the falcon "
+              f"prefill)", bit_equal_to_plain=bit_equal,
+        sweep_bit_equal_to_plain=sweep_bit_equal))
     return out
 
 
@@ -1058,6 +1594,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     try:
         import repro_torch  # noqa: F401
     except ImportError as e:
@@ -1090,7 +1627,8 @@ def main() -> int:
         guard_phase(torch, ds, index, cfg, dev)
         lg_ds, lg_index, lg_cfg, lg_recs, lg_launches = run_long_path(
             torch, dev)
-        if "--profile" in sys.argv[1:]:
+        profile = "--profile" in sys.argv[1:]
+        if profile:
             profile_search(torch, ds, index, cfg, "main path")
             profile_search(torch, sk_ds, sk_index, sk_cfg, "sketch path")
             profile_search(torch, lg_ds, lg_index, lg_cfg, "long path")
@@ -1098,11 +1636,19 @@ def main() -> int:
                    "long": lg_launches}
         kernels = kernel_phases(torch, dev, recs, windows, sk_index,
                                 sk_ds.x_test, index, ds.x_test, lg_recs)
-        del sk_index, lg_index
+        # the LM phase needs the card's memory: falcon-mamba-7b's f32
+        # weights and bf16 copy are 43.6 GB
+        del ds, index, res, recs, sk_ds, sk_index, lg_ds, lg_index, lg_recs
+        gc.collect()
+        torch.cuda.empty_cache()
+        lm_windows, lm_recs = run_lm_phase(torch, dev, profile)
+        kernels += lm_kernel_phases(torch, dev, lm_windows, lm_recs)
+        del lm_recs
         torch.cuda.synchronize()
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
+    print(f"chip_smoke wall seconds: {time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

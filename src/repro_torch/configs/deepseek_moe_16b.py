@@ -1,0 +1,22 @@
+"""deepseek-moe-16b [moe] — 28L d=2048 16H (GQA kv=16) d_ff=1408 vocab=102400,
+MoE 64 routed top-6 + 2 shared, fine-grained, first layer dense.
+[arXiv:2401.06066; hf]
+"""
+
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="deepseek-moe-16b",
+    family="moe",
+    n_layers=28,
+    d_model=2048,
+    n_heads=16,
+    n_kv_heads=16,
+    d_ff=1408,
+    vocab=102400,
+    n_experts=64,
+    n_shared_experts=2,
+    top_k=6,
+    d_expert=1408,
+    first_dense=1,
+)

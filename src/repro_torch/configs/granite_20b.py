@@ -1,0 +1,17 @@
+"""granite-20b [dense] — 52L d=6144 48H (MQA kv=1) d_ff=24576 vocab=49152,
+llama-arch code model.  [arXiv:2405.04324; hf]
+"""
+
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="granite-20b",
+    family="dense",
+    n_layers=52,
+    d_model=6144,
+    n_heads=48,
+    n_kv_heads=1,
+    d_ff=24576,
+    vocab=49152,
+    act="gelu",   # granite-20b-code uses gpt-bigcode-style MLP
+)

@@ -1,4 +1,6 @@
-"""Build and load the port's CUDA kernels (``csrc/*.cu``).
+"""Build and load the port's CUDA kernels (``csrc/*.cu``: nine sources,
+K1-K10; K4 and K6 share ``dtw_band.cu``, and K4, K5 and K6 the body in
+``dtw_band.cuh``).
 
 Each source is compiled by its own ``nvcc`` process, all started together,
 for ``sm_90a``; the objects are linked into one shared library with a
@@ -31,6 +33,7 @@ _FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _LL = ctypes.c_longlong
 _SIGNATURES = {
     # name: (argtypes, restype)
@@ -46,6 +49,10 @@ _SIGNATURES = {
     "sketch_bound_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
     "sketch_bound_smem_bytes": ([_I], ctypes.c_longlong),
     "lb_keogh_launch": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
+    "flash_attention_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                _I, _I, _F, _F, _P], _I),
+    "mamba_scan_launch": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _P], _I),
     "rt_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -138,7 +145,8 @@ def check(rc: int, what: str) -> None:
 # so a run can show that a path went through the kernel.
 COUNTS: dict[str, int] = dict.fromkeys(
     ("envelope", "lb_enhanced", "lb_enhanced_pairwise", "dtw_band",
-     "dtw_band_stream", "dtw_band_step", "sketch_bound", "lb_keogh"), 0)
+     "dtw_band_stream", "dtw_band_step", "sketch_bound", "lb_keogh",
+     "flash_attention", "mamba_scan"), 0)
 
 
 def reset_counts() -> None:

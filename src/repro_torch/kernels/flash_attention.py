@@ -1,0 +1,84 @@
+"""K9 wrapper: fused attention forward on the card
+(csrc/flash_attention.cu).
+
+Replaces ``src/repro/kernels/flash_attention.py:flash_attention_pallas``
+(``_flash_fwd_kernel``).  Bound on this card: operations, 4 D per
+unmasked (query head, key) pair (two products of D multiply-adds); at
+gemma2-2b's B = 2, S = 8192, Hq = 8, Hkv = 4, D = 256 a global layer is
+~0.55 TFLOP against ~0.2 GB of q, k, v and o.  Design: one block per
+(batch x kv head, query tile) with the g query heads of the kv head
+folded into its 64 rows, key tiles of 32 staged in shared memory, the
+online softmax in f32 on CUDA cores, and key tiles outside the causal
+wedge or the window skipped.  Forward only: inputs that require a
+gradient are refused (training, ROADMAP Queue 1 item 13(b), is to
+recompute through the plain version, as ``repro.kernels.ops._fa_bwd``
+does).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels._launch import stream_ptr
+
+Tensor = torch.Tensor
+
+# query rows (query, head) of one block: g = Hq / Hkv may not exceed it
+MAX_GROUP = 64
+MAX_HEAD_DIM = 256
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
+                         window: int | None = None,
+                         score_cap: float | None = None) -> Tensor:
+    """q ``(B, Sq, Hq, D)``, k and v ``(B, Skv, Hkv, D)`` (float32 or
+    bfloat16, one type) ``-> (B, Sq, Hq, D)`` in q's type, on the card.
+    Positions are implicit: query row i attends key rows ``<= i`` when
+    ``causal`` and ``> i - window`` when ``window`` is set."""
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if not isinstance(x, Tensor) or not x.is_cuda:
+            raise ValueError(f"{name}: expected a CUDA tensor")
+        if x.dim() != 4:
+            raise ValueError(f"{name}: expected (B, S, H, D), got "
+                             f"{tuple(x.shape)}")
+        if x.dtype != q.dtype or x.dtype not in _DTYPES:
+            raise ValueError(f"{name}: expected float32 or bfloat16 like q, "
+                             f"got {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name}: expected a contiguous tensor")
+        if x.device != q.device:
+            raise ValueError(f"{name}: on {x.device}, expected {q.device}")
+        if x.requires_grad:
+            raise ValueError(f"{name}: the kernel is forward-only; its "
+                             "input may not require a gradient")
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    if tuple(k.shape) != (B, Skv, Hkv, D) or v.shape != k.shape:
+        raise ValueError(f"k, v: expected shape {(B, Skv, Hkv, D)}, got "
+                         f"{tuple(k.shape)} and {tuple(v.shape)}")
+    if Hkv == 0 or Hq % Hkv:
+        raise ValueError(f"Hq = {Hq} is not a multiple of Hkv = {Hkv}")
+    if Hq // Hkv > MAX_GROUP:
+        raise ValueError(f"{Hq // Hkv} query heads per kv head: the kernel "
+                         f"folds at most {MAX_GROUP} into a block")
+    if D > MAX_HEAD_DIM:
+        raise ValueError(f"head dim {D} > {MAX_HEAD_DIM}: the kernel keeps "
+                         "a block's query rows in shared memory")
+    if window is not None and window < 1:
+        raise ValueError(f"window = {window}: expected None or >= 1")
+    if score_cap is not None and not score_cap > 0:
+        raise ValueError(f"score_cap = {score_cap}: expected None or > 0")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    lib = _build.library()
+    _build.check(lib.flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        _DTYPES[q.dtype], B, Sq, Skv, Hq, Hkv, D, int(bool(causal)),
+        0 if window is None else int(window),
+        0.0 if score_cap is None else float(score_cap), float(D ** -0.5),
+        stream_ptr(q.device)), "flash_attention")
+    _build.COUNTS["flash_attention"] += 1
+    return out

@@ -1,0 +1,63 @@
+"""K10 wrapper: the Mamba-1 selective scan on the card
+(csrc/mamba_scan.cu).
+
+Replaces ``src/repro/kernels/mamba_scan.py:mamba_scan_pallas``
+(``_mamba_scan_kernel``).  Bound on this card: bytes, the inputs and
+outputs once, ``B S (2C + 2N) 4 + B S C 4``: ~0.8 GB, ~0.24 ms at
+falcon-mamba-7b's B = 4, S = 2048, C = 8192, N = 16.  Design: one thread
+per (batch row, channel) carries ``h[N]`` in registers through the whole
+sequence; blocks of 128 channels stage chunks of 16 time steps of the
+shared B and C rows and of their own delta and u columns in shared
+memory.  Forward only: inputs that require a gradient are refused
+(training, ROADMAP Queue 1 item 13(b), is to recompute through the plain
+version, as ``repro.kernels.ops._mamba_bwd`` does).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels._launch import cuda_f32, stream_ptr
+
+Tensor = torch.Tensor
+
+# the state h[N] lives in each thread's registers
+MAX_STATE = 64
+
+
+def mamba_scan_cuda(delta: Tensor, u: Tensor, A: Tensor, Bmat: Tensor,
+                    Cmat: Tensor, h0: Tensor) -> tuple[Tensor, Tensor]:
+    """delta and u ``(B, S, C)``, A ``(C, N)``, B and C ``(B, S, N)``, h0
+    ``(B, C, N)``, all float32 ``-> (y (B, S, C), hT (B, C, N))`` on the
+    card."""
+    if delta.dim() != 3 or A.dim() != 2:
+        raise ValueError("delta, A: expected (B, S, C) and (C, N)")
+    Bsz, S, C = delta.shape
+    N = A.shape[1]
+    cuda_f32("delta", delta)
+    dev = delta.device
+    cuda_f32("u", u, (Bsz, S, C), dev)
+    cuda_f32("A", A, (C, N), dev)
+    cuda_f32("Bmat", Bmat, (Bsz, S, N), dev)
+    cuda_f32("Cmat", Cmat, (Bsz, S, N), dev)
+    cuda_f32("h0", h0, (Bsz, C, N), dev)
+    for name, x in (("delta", delta), ("u", u), ("A", A), ("Bmat", Bmat),
+                    ("Cmat", Cmat), ("h0", h0)):
+        if x.requires_grad:
+            raise ValueError(f"{name}: the kernel is forward-only; its "
+                             "input may not require a gradient")
+    if not 1 <= N <= MAX_STATE:
+        raise ValueError(f"ssm state N = {N}: the kernel keeps h[N] in "
+                         f"registers and takes 1 <= N <= {MAX_STATE}")
+    y = torch.empty_like(delta)
+    hT = torch.empty_like(h0)
+    if Bsz == 0 or C == 0:
+        return y, hT
+    lib = _build.library()
+    _build.check(lib.mamba_scan_launch(
+        delta.data_ptr(), u.data_ptr(), A.data_ptr(), Bmat.data_ptr(),
+        Cmat.data_ptr(), h0.data_ptr(), y.data_ptr(), hT.data_ptr(), Bsz, S,
+        C, N, stream_ptr(dev)), "mamba_scan")
+    _build.COUNTS["mamba_scan"] += 1
+    return y, hT

@@ -14,13 +14,20 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.dtw_band import dtw_band_cuda, dtw_band_route
 from repro_torch.kernels.envelope import envelope_cuda
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.lb_enhanced import lb_enhanced_cuda
 from repro_torch.kernels.lb_enhanced_pairwise import lb_enhanced_pairwise_cuda
 from repro_torch.kernels.lb_keogh import lb_keogh_cuda
+from repro_torch.kernels.mamba_scan import mamba_scan_cuda
 from repro_torch.kernels.sketch import sketch_bound_cuda
 from repro_torch.kernels.tiling import apply_pair_perm
 
 Tensor = torch.Tensor
+
+# Calls of the LM substrate's two ops, on either route (the kernels'
+# launch counts are ``_build.COUNTS``): the model's routing is read from
+# these on the CPU too, where no kernel launches.
+OP_CALLS: dict[str, int] = {"flash_attention": 0, "mamba_scan": 0}
 
 
 def _on_card(x: Tensor) -> bool:
@@ -124,3 +131,27 @@ def dtw_band_op(a: Tensor, b: Tensor, w: int | None = None, cutoff=None,
 
     hook = fault_hook("dtw_out")
     return out if hook is None else hook(out)
+
+
+def flash_attention_op(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
+                       window: int | None = None,
+                       score_cap: float | None = None) -> Tensor:
+    """Fused self-attention forward, q ``(B, Sq, Hq, D)`` x k, v ``(B,
+    Skv, Hkv, D)`` ``-> (B, Sq, Hq, D)``, positions implicit (K9).
+    Forward only (training is ROADMAP Queue 1 item 13(b)): on the card,
+    inputs that require a gradient raise."""
+    OP_CALLS["flash_attention"] += 1
+    if _on_card(q):
+        return flash_attention_cuda(q, k, v, causal, window, score_cap)
+    return ref.flash_attention_ref(q, k, v, causal, window, score_cap)
+
+
+def mamba_scan_op(delta: Tensor, u: Tensor, A: Tensor, Bmat: Tensor,
+                  Cmat: Tensor, h0: Tensor) -> tuple[Tensor, Tensor]:
+    """Fused selective scan ``-> (y (B, S, C), h_final (B, C, N))`` (K10).
+    Forward only (training is ROADMAP Queue 1 item 13(b)): on the card,
+    inputs that require a gradient raise."""
+    OP_CALLS["mamba_scan"] += 1
+    if _on_card(delta):
+        return mamba_scan_cuda(delta, u, A, Bmat, Cmat, h0)
+    return ref.mamba_scan_ref(delta, u, A, Bmat, Cmat, h0)

@@ -1,9 +1,11 @@
-"""Plain PyTorch versions of the six kernels (port of
-``repro.kernels.ref``).
+"""Plain PyTorch versions of the kernels (port of ``repro.kernels.ref``,
+plus the plain versions of the flash-attention and selective-scan
+kernels, which the JAX package keeps in ``models/attention.py`` and
+``kernels/mamba_scan.py``).
 
 Each ``*_ref`` has its kernel's semantics exactly: the same shapes, the
-same ``live`` / ``bands_only`` / ``cutoff`` / ``perm`` rules.  The CPU
-path of ``kernels/ops.py`` runs these, the tests hold them against the
+same ``live`` / ``bands_only`` / ``cutoff`` / ``perm`` / masking rules.
+The CPU path of ``kernels/ops.py`` runs these, the tests hold them against the
 JAX package, and ``chip_smoke.py`` holds each kernel against them on the
 card.
 """
@@ -142,3 +144,91 @@ def dtw_band_ref(a: Tensor, b: Tensor, w: int | None = None,
             perm, a, b, cutoff,
         )
     return dtw_band_blocked(a, b, w, cutoff, row_block=row_block)
+
+
+# large negative for masking in f32 (finite, as in the JAX package)
+_NEG = -2.3819763e38
+
+
+def flash_attention_ref(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
+                        window: int | None = None,
+                        score_cap: float | None = None, *,
+                        q_pos: Tensor | None = None,
+                        kv_pos: Tensor | None = None,
+                        kv_valid: Tensor | None = None,
+                        kv_chunk: int = 1024) -> Tensor:
+    """Online-softmax GQA attention over KV chunks, in f32: q ``(B, Sq,
+    Hq, D)``, k and v ``(B, Skv, Hkv, D)`` ``-> (B, Sq, Hq, D)`` in q's
+    dtype (``repro.models.attention.flash_attention``).
+
+    Positions default to the kernel's implicit ones (row i attends key
+    rows ``<= i``); ``kv_valid`` ``(B, Skv)`` masks unwritten cache
+    slots.  q is scaled by ``D**-0.5`` in f32 before the product, the
+    soft cap comes before the mask, masked scores take the finite
+    ``_NEG`` and ``l`` is floored at ``1e-30`` in the final divide.
+    """
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    dev = q.device
+    if q_pos is None:
+        q_pos = torch.arange(Sq, device=dev).expand(B, Sq)
+    if kv_pos is None:
+        kv_pos = torch.arange(Skv, device=dev).expand(B, Skv)
+    qf = (q.float() * D ** -0.5).reshape(B, Sq, Hkv, g, D)
+    qf = qf.permute(0, 2, 3, 1, 4).reshape(B, Hkv, g * Sq, D)
+    m = torch.full((B, Hkv, g * Sq), _NEG, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, Hkv, g * Sq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, Hkv, g * Sq, D), dtype=torch.float32, device=dev)
+    # (B, 1, g*Sq, 1): each folded row's query position
+    rows_pos = q_pos[:, None, :].expand(B, g, Sq).reshape(B, 1, g * Sq, 1)
+    for c0 in range(0, Skv, kv_chunk):
+        k_i = k[:, c0:c0 + kv_chunk].float().permute(0, 2, 3, 1)  # (B,Hkv,D,C)
+        v_i = v[:, c0:c0 + kv_chunk].float().permute(0, 2, 1, 3)  # (B,Hkv,C,D)
+        s = torch.matmul(qf, k_i)                        # (B, Hkv, gSq, C)
+        if score_cap is not None:
+            s = score_cap * torch.tanh(s / score_cap)
+        dp = rows_pos - kv_pos[:, None, None, c0:c0 + kv_chunk]
+        ok = torch.ones_like(dp, dtype=torch.bool)
+        if kv_valid is not None:
+            ok = ok & kv_valid[:, None, None, c0:c0 + kv_chunk]
+        if causal:
+            ok = ok & (dp >= 0)
+        if window is not None:
+            ok = ok & (dp < window)
+        s = torch.where(ok, s, _NEG)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.matmul(p, v_i)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]     # (B, Hkv, gSq, D)
+    out = out.reshape(B, Hkv, g, Sq, D).permute(0, 3, 1, 2, 4)
+    return out.reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+def mamba_scan_ref(delta: Tensor, u: Tensor, A: Tensor, Bmat: Tensor,
+                   Cmat: Tensor, h0: Tensor) -> tuple[Tensor, Tensor]:
+    """Selective scan, in time order: ``h = exp(d A) h + (d u) B``,
+    ``y = sum_n h C``.  delta and u ``(B, S, C)``, A ``(C, N)``, B and C
+    ``(B, S, N)``, h0 ``(B, C, N)`` ``-> (y (B, S, C), hT (B, C, N))``
+    (``repro.kernels.mamba_scan``'s kernel, one step at a time).
+
+    The state update is ``(exp(d A) * h) + ((d * u) * B)`` and the N-sum
+    runs ``n = 0 .. N-1`` as ``acc + h_n C_n``, each product and sum
+    rounded on its own; the selective-scan kernel (csrc/mamba_scan.cu)
+    does the same, so the two agree bit for bit where their ``exp``s do.
+    """
+    Bsz, S, C = delta.shape
+    h = h0.float()
+    y = torch.empty((Bsz, S, C), dtype=delta.dtype, device=delta.device)
+    for t in range(S):
+        dt = delta[:, t]                                         # (B, C)
+        a = torch.exp(dt[:, :, None] * A)                        # (B, C, N)
+        h = a * h + (dt * u[:, t])[:, :, None] * Bmat[:, t, None, :]
+        acc = torch.zeros_like(dt)
+        for n in range(A.shape[1]):
+            acc = acc + h[:, :, n] * Cmat[:, t, n, None]
+        y[:, t] = acc
+    return y, h.to(h0.dtype)

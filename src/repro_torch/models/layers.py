@@ -1,0 +1,135 @@
+"""Shared neural layers: norms, soft-capping, rotary embeddings, MLPs,
+embeddings (port of ``repro.models.layers``).
+
+Conventions, as in the JAX package:
+  * params are plain nested dicts of tensors (f32 at rest);
+  * compute runs in the model's compute dtype (bf16 by default);
+  * all shapes are ``(batch, seq, ...)``; heads axes are explicit.
+
+Initialisers draw from an explicit ``torch.Generator`` with the JAX
+initialisers' distributions (``lecun_normal`` is a normal truncated to
+two standard deviations, rescaled to unit variance over ``fan_in``);
+the numbers differ from JAX's, so the tests carry JAX's parameters over
+with ``models.convert``.  ``apply_mrope`` and ``chunked_cross_entropy``
+are not ported yet (ROADMAP Queue 1 items 13(d) and 13(b)).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+Tensor = torch.Tensor
+
+# jax.nn.initializers.lecun_normal: truncated normal on [-2, 2] whose
+# standard deviation is scaled back to 1 (the constant JAX divides by)
+_TRUNC_STD = 0.87962566103423978
+
+
+def lecun_normal(shape: tuple[int, ...], generator: torch.Generator,
+                 device: torch.device) -> Tensor:
+    """``jax.nn.initializers.lecun_normal()`` for a ``(fan_in, ...)``
+    matrix: variance ``1 / fan_in``, truncated at two deviations."""
+    std = math.sqrt(1.0 / shape[-2]) / _TRUNC_STD
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    return torch.nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std,
+                                       generator=generator)
+
+
+def normal(shape: tuple[int, ...], std: float, generator: torch.Generator,
+           device: torch.device) -> Tensor:
+    """``jax.nn.initializers.normal(std)``."""
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    return t.normal_(0.0, std, generator=generator)
+
+
+def rms_norm(x: Tensor, scale: Tensor, eps: float = 1e-6) -> Tensor:
+    """RMS norm scaled by ``1 + scale``, computed in f32 and cast back."""
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * (1.0 + scale.float())).to(dt)
+
+
+def softcap(x: Tensor, cap: float | None) -> Tensor:
+    """Gemma-2 style logit soft-capping: ``cap * tanh(x / cap)``."""
+    if cap is None:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
+def activation(name: str):
+    if name == "silu":
+        return F.silu
+    if name == "gelu":
+        # jax.nn.gelu defaults to the tanh approximation
+        return lambda x: F.gelu(x, approximate="tanh")
+    raise ValueError(f"unknown activation {name!r}")
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+def rope_freqs(d_head: int, theta: float, device=None) -> Tensor:
+    """(d_head/2,) inverse frequencies."""
+    return 1.0 / (theta ** (torch.arange(0, d_head, 2, dtype=torch.float32,
+                                         device=device) / d_head))
+
+
+def apply_rope(x: Tensor, positions: Tensor, theta: float = 10000.0) -> Tensor:
+    """Rotary embedding over split halves (not interleaved pairs).
+
+    Args:
+      x: (B, S, H, D) queries or keys.
+      positions: (B, S) integer positions.
+    """
+    freqs = rope_freqs(x.shape[-1], theta, x.device)            # (D/2,)
+    ang = positions[..., None].float() * freqs                  # (B, S, D/2)
+    sin = torch.sin(ang)[:, :, None, :]
+    cos = torch.cos(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Dense / gated MLP
+# ---------------------------------------------------------------------------
+
+def mlp_init(gen: torch.Generator, device, d_model: int, d_ff: int,
+             act: str) -> dict[str, Tensor]:
+    p = {
+        "wi": lecun_normal((d_model, d_ff), gen, device),
+        "wo": lecun_normal((d_ff, d_model), gen, device),
+    }
+    if act == "silu":  # gated (SwiGLU-style)
+        p["wg"] = lecun_normal((d_model, d_ff), gen, device)
+    return p
+
+
+def mlp_apply(p: dict[str, Tensor], x: Tensor, act: str) -> Tensor:
+    """Gated only for ``silu``, as in the JAX package."""
+    dt = x.dtype
+    h = x @ p["wi"].to(dt)
+    if "wg" in p:
+        h = activation(act)(x @ p["wg"].to(dt)) * h
+    else:
+        h = activation(act)(h)
+    return h @ p["wo"].to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Embedding
+# ---------------------------------------------------------------------------
+
+def embed_init(gen: torch.Generator, device, vocab: int,
+               d_model: int) -> Tensor:
+    return normal((vocab, d_model), 0.02, gen, device)
+
+
+def embed_lookup(table: Tensor, ids: Tensor, dtype) -> Tensor:
+    return table[ids.long()].to(dtype)

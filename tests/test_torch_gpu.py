@@ -9,7 +9,11 @@ Tolerances: envelopes, banded DTW (K4, the per-step K6 and the
 band-streaming K5), the bands-only LB_ENHANCED and the sketch bound are
 bit-equal with the same +-inf positions; the full
 LB_ENHANCED forms and LB_Keogh agree to rtol 1e-5, atol 1e-6 (their
-L-term sums run in another order).
+L-term sums run in another order).  Flash attention (K9) agrees with its
+plain version to rtol 1e-4, atol 1e-5 in float32 and to rtol 1e-2, atol
+1e-2 in bfloat16 (one bf16 rounding of outputs whose f32 sums ran in
+another order); the selective scan (K10) to rtol 1e-5, atol 1e-6 (its
+N-sum runs in another order).
 """
 
 import numpy as np
@@ -24,9 +28,11 @@ from repro_torch.kernels.dtw_band import (
     dtw_band_route,
 )
 from repro_torch.kernels.envelope import envelope_cuda
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.lb_enhanced import lb_enhanced_cuda
 from repro_torch.kernels.lb_enhanced_pairwise import lb_enhanced_pairwise_cuda
 from repro_torch.kernels.lb_keogh import lb_keogh_cuda
+from repro_torch.kernels.mamba_scan import mamba_scan_cuda
 from repro_torch.kernels.sketch import sketch_bound_cuda
 from repro_torch.search import (
     CascadeConfig,
@@ -234,7 +240,8 @@ def test_wrappers_count_launches_and_refuse_bad_input(dev):
     assert _build.counts() == {"envelope": 1, "lb_enhanced": 0,
                                "lb_enhanced_pairwise": 0, "dtw_band": 2,
                                "dtw_band_stream": 0, "dtw_band_step": 0,
-                               "sketch_bound": 0, "lb_keogh": 0}
+                               "sketch_bound": 0, "lb_keogh": 0,
+                               "flash_attention": 0, "mamba_scan": 0}
     with pytest.raises(ValueError, match="float32"):
         dtw_band_cuda(x.double(), x.double(), 3)
     with pytest.raises(ValueError, match="contiguous"):
@@ -335,3 +342,108 @@ def test_sketch_path_on_the_card_equals_the_cpu(dev):
     assert torch.equal(gr.dists.cpu(), cr.dists)
     assert gs.guards.tripped() == () and not gs.degraded
     planner.plan_cache_clear()
+
+
+# K9 sweep: g in {1, 2, 8}, D in {64, 128, 256}, causal and not, window,
+# cap, ragged and unequal Sq / Skv, float32 and bfloat16
+FLASH_SWEEP = [
+    # B, Sq, Skv, Hq, Hkv, D, causal, window, cap, dtype
+    (2, 40, 40, 4, 4, 64, True, None, None, torch.float32),
+    (1, 77, 77, 8, 1, 128, True, 16, 30.0, torch.float32),
+    (2, 100, 70, 2, 1, 256, False, None, None, torch.float32),
+    (1, 33, 90, 8, 4, 64, False, 20, 50.0, torch.float32),
+    (2, 129, 129, 16, 2, 128, True, None, 50.0, torch.bfloat16),
+    (1, 300, 300, 8, 4, 256, True, 64, 50.0, torch.bfloat16),
+    (3, 65, 65, 2, 2, 96, False, None, None, torch.bfloat16),
+    (1, 1, 17, 8, 4, 256, False, None, 50.0, torch.float32),
+]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,D,causal,window,cap,dtype",
+                         FLASH_SWEEP)
+def test_flash_attention_kernel(dev, B, Sq, Skv, Hq, Hkv, D, causal, window,
+                                cap, dtype):
+    q = _rand(dev, 20, B, Sq, Hq, D).to(dtype)
+    k = _rand(dev, 21, B, Skv, Hkv, D).to(dtype)
+    v = _rand(dev, 22, B, Skv, Hkv, D).to(dtype)
+    got = flash_attention_cuda(q, k, v, causal, window, cap)
+    want = ref.flash_attention_ref(q, k, v, causal, window, cap)
+    assert got.dtype == dtype and got.shape == want.shape
+    tol = (dict(rtol=1e-4, atol=1e-5) if dtype == torch.float32
+           else dict(rtol=1e-2, atol=1e-2))
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+# K10 sweep: N in {4, 16, 64}, S and C multiples of no tile, nonzero h0
+MAMBA_SWEEP = [(2, 33, 70, 4), (3, 100, 300, 16), (1, 17, 129, 64),
+               (2, 1, 5, 16), (1, 50, 128, 32)]
+
+
+@pytest.mark.parametrize("B,S,C,N", MAMBA_SWEEP)
+def test_mamba_scan_kernel(dev, B, S, C, N):
+    g = torch.Generator().manual_seed(23)
+    delta = (torch.rand(B, S, C, generator=g) * 0.1).to(dev)
+    u = _rand(dev, 24, B, S, C)
+    A = (-torch.rand(C, N, generator=g) * 3).to(dev)
+    Bm, Cm = _rand(dev, 25, B, S, N), _rand(dev, 26, B, S, N)
+    h0 = _rand(dev, 27, B, C, N)
+    y, h = mamba_scan_cuda(delta, u, A, Bm, Cm, h0)
+    ry, rh = ref.mamba_scan_ref(delta, u, A, Bm, Cm, h0)
+    torch.testing.assert_close(y, ry, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(h, rh, rtol=1e-5, atol=1e-6)
+
+
+def test_lm_kernel_wrappers_count_and_refuse(dev):
+    _build.reset_counts()
+    q = _rand(dev, 30, 1, 8, 4, 64)
+    kv = _rand(dev, 31, 1, 8, 2, 64)
+    flash_attention_cuda(q, kv, kv)
+    args = [_rand(dev, 32, 1, 6, 8), _rand(dev, 33, 1, 6, 8),
+            -_rand(dev, 34, 8, 4).abs(), _rand(dev, 35, 1, 6, 4),
+            _rand(dev, 36, 1, 6, 4), _rand(dev, 37, 1, 8, 4)]
+    mamba_scan_cuda(*args)
+    assert _build.counts()["flash_attention"] == 1
+    assert _build.counts()["mamba_scan"] == 1
+    with pytest.raises(ValueError, match="gradient"):
+        flash_attention_cuda(q.requires_grad_(), kv, kv)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        flash_attention_cuda(q.detach().half(), kv.half(), kv.half())
+    with pytest.raises(ValueError, match="head dim"):
+        big = _rand(dev, 38, 1, 4, 2, 320)
+        flash_attention_cuda(big, big, big)
+    with pytest.raises(ValueError, match="folds at most"):
+        flash_attention_cuda(_rand(dev, 39, 1, 4, 128, 8),
+                             _rand(dev, 40, 1, 4, 1, 8),
+                             _rand(dev, 41, 1, 4, 1, 8))
+    with pytest.raises(ValueError, match="gradient"):
+        mamba_scan_cuda(args[0].requires_grad_(), *args[1:])
+    wide = [args[0].detach(), args[1], -_rand(dev, 42, 8, 65).abs(),
+            _rand(dev, 43, 1, 6, 65), _rand(dev, 44, 1, 6, 65),
+            _rand(dev, 45, 1, 8, 65)]
+    with pytest.raises(ValueError, match="registers"):
+        mamba_scan_cuda(*wide)
+    assert _build.counts()["flash_attention"] == 1
+    assert _build.counts()["mamba_scan"] == 1
+
+
+@pytest.mark.parametrize("name,kernel", [("gemma2-2b", "flash_attention"),
+                                         ("falcon-mamba-7b", "mamba_scan")])
+def test_lm_prefill_on_the_card_equals_the_cpu(dev, name, kernel):
+    """A reduced model (f32) on the card through K9 / K10 against the same
+    weights on the CPU through the plain versions; each layer launched
+    the kernel once."""
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models import LM
+
+    cfg = reduced(ARCHS[name])
+    model = LM(cfg, compute_dtype=torch.float32, cache_dtype=torch.float32,
+               attn_impl="kernel", ssm_impl="kernel")
+    params = model.init(torch.Generator().manual_seed(3), device="cpu")
+    tokens = torch.randint(0, cfg.vocab, (2, 24),
+                           generator=torch.Generator().manual_seed(4))
+    want, _, _ = model.prefill(params, {"tokens": tokens})
+    on_card = torch.utils._pytree.tree_map(lambda t: t.to(dev), params)
+    _build.reset_counts()
+    got, _, _ = model.prefill(on_card, {"tokens": tokens.to(dev)})
+    assert _build.counts()[kernel] == cfg.n_layers
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)

@@ -200,7 +200,8 @@ def test_launch_counters_reset_and_read():
     counts = _build.counts()
     assert set(counts) == {"envelope", "lb_enhanced", "lb_enhanced_pairwise",
                            "dtw_band", "dtw_band_stream", "dtw_band_step",
-                           "sketch_bound", "lb_keogh"}
+                           "sketch_bound", "lb_keogh", "flash_attention",
+                           "mamba_scan"}
     _build.COUNTS["dtw_band"] += 3
     assert _build.counts()["dtw_band"] == 3
     _build.reset_counts()
@@ -213,4 +214,5 @@ def test_build_key_covers_every_source():
     names = {p.name for p in _build._sources()}
     assert names == {"envelope.cu", "lb_enhanced.cu",
                      "lb_enhanced_pairwise.cu", "dtw_band.cu",
-                     "dtw_band_stream.cu", "sketch.cu", "lb_keogh.cu"}
+                     "dtw_band_stream.cu", "sketch.cu", "lb_keogh.cu",
+                     "flash_attention.cu", "mamba_scan.cu"}
