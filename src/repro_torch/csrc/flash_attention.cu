@@ -1,33 +1,45 @@
 // K9: fused attention forward with online softmax (GQA, causal, sliding
-// window, score soft-cap).  q (B, Sq, Hq, D), k and v (B, Skv, Hkv, D),
-// float32 or bfloat16 -> o (B, Sq, Hq, D) in q's type.  Positions are
-// implicit: query row i attends key rows <= i (causal) and > i - window.
+// window, score soft-cap).  q (B, Sq, Hq, D), k and v (B, Skv, Hkv, D)
+// -> o (B, Sq, Hq, D) in q's type.  Positions are implicit: query row i
+// attends key rows <= i (causal) and > i - window.  Two forms, chosen by
+// the input type alone (kernels/flash_attention.py):
+//
+//   bfloat16  flash_fwd_wgmma: tensor cores (wgmma), K/V tiles by TMA
+//             (below, after the f32 form);
+//   float32   flash_fwd_kernel: CUDA cores in f32 (this part), which the
+//             f32 sweep's 1e-4 tolerance needs (neither bf16 nor TF32
+//             products meet it).
 //
 // Replaces src/repro/kernels/flash_attention.py:flash_attention_pallas
 // (_flash_fwd_kernel).  Bound on this card: operations -- 4 D per
 // unmasked (query head, key) pair, against q, k, v and o read or written
 // once (at gemma2-2b's B = 2, S = 8192, Hq = 8, Hkv = 4, D = 256 a global
-// layer is ~0.55 TFLOP against ~0.2 GB).  Design, simple first: one block
-// per (batch x kv head, query tile); the g query heads of the kv head
-// share the K/V tiles, folded into the block's FA_R rows as the Pallas
-// kernel folds them into its tile rows (row r = query q0 + r / g, head
-// hk g + r % g).  The scaled query rows stay in shared memory in f32; the
-// block walks the key tiles of FA_TK rows (staged in shared memory in
-// f32) with the online-softmax state (m, l) per row in shared memory and
-// acc in registers, all f32, on CUDA cores.  Key tiles wholly outside the
-// causal wedge or the window are never loaded.  Ragged Sq and Skv are
-// bounds checks; nothing is padded in device memory.
+// layer is ~0.55 TFLOP against ~0.2 GB).  Both forms fold the g query
+// heads of a kv head into a block's rows as the Pallas kernel folds them
+// into its tile rows (row r = query q0 + r / g, head hk g + r % g), so a
+// K/V tile is read once for all g heads; key tiles wholly outside the
+// causal wedge or the window are never loaded; ragged Sq and Skv are
+// bounds checks (f32) or the TMA's zero fill (bf16); nothing is padded
+// in device memory.
 //
-// Semantics of the reference kept exactly: q scaled by D**-0.5 in f32
-// before the product; cap * tanh(s / cap) before the mask; masked scores
-// take the finite -2.3819763e38 (so a row's first all-masked tile is
-// wiped by the first real score's alpha = 0, as in the reference); l is
-// floored at 1e-30 in the final divide.  The D-sum and the key-sum run
-// in another order than the plain version's, so the two agree to a
-// tolerance, not bit for bit.
-#include "common.cuh"
-
+// Semantics of the reference kept: cap * tanh(s / cap) before the mask;
+// masked scores take the finite -2.3819763e38 (so a row's first
+// all-masked tile is wiped by the first real score's alpha = 0, as in
+// the reference); l is floored at 1e-30 in the final divide.  The f32
+// form scales q by D**-0.5 in f32 before the product, as the reference.
+// The D-sum and the key-sum run in another order than the plain
+// version's, so the two agree to a tolerance, not bit for bit.
+//
+// The f32 form, simple first: one block of 256 threads per (batch x kv
+// head, query tile of 64 folded rows); the scaled query rows stay in
+// shared memory in f32; the block walks key tiles of FA_TK rows (staged
+// in shared memory in f32) with the online-softmax state (m, l) per row
+// in shared memory and acc in registers.
+#include <cuda.h>
 #include <cuda_bf16.h>
+
+#include "common.cuh"
+#include "wgmma.cuh"
 
 #define FA_R 64            // folded (query, head) rows per block
 #define FA_TK 32           // key rows per tile
@@ -35,13 +47,7 @@
 #define FA_NEG (-2.3819763e38f)
 
 __device__ __forceinline__ float fa_load(const float* p) { return *p; }
-__device__ __forceinline__ float fa_load(const __nv_bfloat16* p) {
-    return __bfloat162float(*p);
-}
 __device__ __forceinline__ void fa_store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void fa_store(__nv_bfloat16* p, float x) {
-    *p = __float2bfloat16_rn(x);
-}
 
 template <int DMAX>
 constexpr int fa_smem_floats() {
@@ -250,18 +256,446 @@ static int flash_launch_d(const void* q, const void* k, const void* v,
                                   causal, window, cap, scale, s);
 }
 
-// dtype: 0 float32, 1 bfloat16.  window <= 0: none; cap <= 0: none.  The
-// wrapper (kernels/flash_attention.py) has checked D <= 256, Hq % Hkv == 0
-// and Hq / Hkv <= FA_R.
-extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int dtype,
-                                      int B, int Sq, int Skv, int Hq,
-                                      int Hkv, int D, int causal, int window,
-                                      float cap, float scale, void* stream) {
+// window <= 0: none; cap <= 0: none.  The wrapper
+// (kernels/flash_attention.py) has checked D <= 256, Hq % Hkv == 0 and
+// Hq / Hkv <= FA_R.
+extern "C" int flash_attention_f32_launch(const void* q, const void* k,
+                                          const void* v, void* o, int B,
+                                          int Sq, int Skv, int Hq, int Hkv,
+                                          int D, int causal, int window,
+                                          float cap, float scale,
+                                          void* stream) {
+    return flash_launch_d<float>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, causal,
+                                 window, cap, scale, (cudaStream_t)stream);
+}
+
+// ---------------------------------------------------------------------------
+// The bf16 form: tensor cores.
+//
+// One block of 384 threads per (batch x kv head, query tile of 128 folded
+// rows): two consumer warpgroups of 64 rows each and a producer warpgroup that
+// gives its registers to them (setmaxnreg: 24 against 240, so the D = 256
+// accumulators do not spill). The producer's first lane loads the block's Q
+// tile once, then the K and V tiles of 64 keys, by TMA (4-D tensor maps over
+// (D, heads, S, B), 128-byte swizzle, zero fill past Sq, Skv and D) into a
+// two-stage ring in shared memory; a stage completes on its "full" mbarrier
+// (transaction bytes) and is handed back on its "empty" mbarrier, on which the
+// eight consumer warps arrive. A consumer warpgroup computes S = Q K^T on
+// wgmma (m64n64k16, Q and K from shared memory, f32 accumulators in
+// registers), scales S by D**-0.5 in f32 after the product (exact at D = 256:
+// 1/16), applies the cap and, on tiles that straddle a mask boundary only, the
+// masks, and runs the online softmax in registers: a row's 64 scores sit on
+// the four threads of a quad, so the row maximum takes two shuffles and the
+// row sums stay per thread until the end. P goes to bf16 as the A operand of
+// O += P V (wgmma m64nDPk16, P from registers in the accumulator's own layout,
+// V from shared memory MN-major). Shared memory at D = 256: 64 KB of Q and 2 x
+// (32 + 32) KB of K/V. A head dim below 64, 128 or 256 is padded to it in
+// shared memory by the TMA's zero fill (D = 96 computes 128 columns), never in
+// device memory. Query tiles run latest first, since under the causal mask
+// they hold the most key tiles.
+//
+// Precision.  P is rounded to bf16 for the PV product, where the reference
+// keeps it in f32; l sums the f32 P.  That is a bf16 rounding of weights
+// in [0, 1], within K9's bf16 tolerance (rtol 1e-2, atol 1e-2):
+// tests/test_torch_lm_kernels.py emulates this arithmetic and holds it to
+// the Pallas kernel and the plain version, and chip_smoke.py holds the
+// kernel to the plain version at the scoring prefill's layers.  exp is
+// ex2.approx (relative error ~2^-22, PTX ISA).  The cap's tanh(y) is
+// 1 - 2 / (1 + 2^(2 y log2 e)) on ex2.approx and rcp.approx: absolute
+// error ~1e-7 in tanh, ~5e-6 in a score capped at 50, where
+// tanh.approx.f32 (maximum relative error ~2^-11, PTX ISA) would err by
+// up to ~0.02.
+namespace fa {
+
+constexpr int BM = 128;                 // folded rows per block
+constexpr int BN = 64;                  // keys per tile
+// two consumer warpgroups, then a producer warpgroup whose first warp
+// issues the copies; setmaxnreg moves registers from the producer (24) to
+// the consumers (240)
+constexpr int THREADS = 384;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// shared-memory layout (bytes from a 1024-aligned base): Q as DP / 64
+// column blocks of [BM][64] bf16, then two K stages and two V stages, each
+// DP / 64 column blocks of [BN][64] (128-byte rows, 128-byte swizzle), then
+// the mbarriers full[2], empty[2] and q
+template <int DP>
+struct Layout {
+    static constexpr int TILE = BN * DP * 2;
+    static constexpr int Q = 0;
+    static constexpr int K = Q + BM * DP * 2;
+    static constexpr int V = K + 2 * TILE;
+    static constexpr int BAR = V + 2 * TILE;
+    static constexpr int BYTES = BAR + 64 + 1024;   // + room to align the base
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+                 "r"(count)
+                 : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+    asm volatile(
+        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+        "r"(bytes)
+        : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+                 : "memory");
+}
+// waits until the phase of parity ``parity`` of the barrier has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+    uint32_t done;
+    do {
+        asm volatile(
+            "{\n.reg .pred p;\n"
+            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            "selp.u32 %0, 1, 0, p;\n}\n"
+            : "=r"(done)
+            : "r"(bar), "r"(parity)
+            : "memory");
+    } while (!done);
+}
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::"
+        "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+        "l"((uint64_t)map), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+        : "memory");
+}
+__device__ __forceinline__ float ex2(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+    return y;
+}
+__device__ __forceinline__ float rcp(float x) {
+    float y;
+    asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+    return y;
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+    __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&h);
+}
+template <int DP>
+__device__ __forceinline__ void pv_product(float (&acc)[DP / 2],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db) {
+    if constexpr (DP == 64)
+        wgmma_m64n64k16_rs(acc, a, db);
+    else if constexpr (DP == 128)
+        wgmma_m64n128k16_rs(acc, a, db);
+    else
+        wgmma_m64n256k16_rs(acc, a, db);
+}
+
+}  // namespace fa
+
+template <int DP>
+__global__ void __launch_bounds__(fa::THREADS, 1)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
+                const __grid_constant__ CUtensorMap kmap,
+                const __grid_constant__ CUtensorMap vmap,
+                __nv_bfloat16* __restrict__ o, int Sq, int Skv, int Hq,
+                int Hkv, int D, int g, int tq, int causal, int window,
+                float cap, float scale) {
+    using namespace fa;
+    using Lay = Layout<DP>;
+    extern __shared__ uint8_t fa_smem[];
+    const uint32_t base =
+        ((uint32_t)__cvta_generic_to_shared(fa_smem) + 1023u) & ~1023u;
+    const uint32_t sq = base + Lay::Q, sk = base + Lay::K,
+                   sv = base + Lay::V;
+    const uint32_t full_bar = base + Lay::BAR;      // + 8 s
+    const uint32_t empty_bar = full_bar + 16;       // + 8 s
+    const uint32_t q_bar = full_bar + 32;
+
+    const int b = blockIdx.x / Hkv, hk = blockIdx.x % Hkv;
+    const int q0 = (gridDim.y - 1 - blockIdx.y) * tq;
+    const int nq = min(tq, Sq - q0);    // valid queries of the tile
+    const int rows = tq * g;
+    // key tiles that hold an unmasked (valid query, key) pair
+    int kbeg = 0, kend = Skv;
+    if (causal) kend = min(Skv, q0 + nq);
+    if (window > 0) kbeg = max(0, q0 - window + 1);
+    kbeg = (kbeg / BN) * BN;
+    const int ntiles = kend > kbeg ? (kend - kbeg + BN - 1) / BN : 0;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+    if (threadIdx.x == 0) {
+        mbar_init(full_bar, 1);
+        mbar_init(full_bar + 8, 1);
+        mbar_init(empty_bar, 8);
+        mbar_init(empty_bar + 8, 8);
+        mbar_init(q_bar, 1);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    if (warp >= 8) {
+        // the producer warpgroup: its first lane loads Q once, then the
+        // K/V ring
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+        if (warp == 8 && lane == 0) {
+            mbar_expect_tx(q_bar, (DP / 64) * rows * 128);
+#pragma unroll
+            for (int c = 0; c < DP / 64; ++c)
+                tma_load_4d(sq + c * BM * 128, &qmap, q_bar, 64 * c, hk * g,
+                            q0, b);
+            for (int t = 0; t < ntiles; ++t) {
+                const int s = t & 1;
+                if (t >= 2) mbar_wait(empty_bar + 8 * s, ((t >> 1) - 1) & 1);
+                mbar_expect_tx(full_bar + 8 * s, 2 * Lay::TILE);
+                const int k0 = kbeg + t * BN;
+#pragma unroll
+                for (int c = 0; c < DP / 64; ++c) {
+                    tma_load_4d(sk + s * Lay::TILE + c * BN * 128, &kmap,
+                                full_bar + 8 * s, 64 * c, hk, k0, b);
+                    tma_load_4d(sv + s * Lay::TILE + c * BN * 128, &vmap,
+                                full_bar + 8 * s, 64 * c, hk, k0, b);
+                }
+            }
+        }
+    } else {
+        // a consumer warpgroup: rows wg * 64 .. + 63; this thread's two rows
+        asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+        const int wg = warp >> 2;
+        const int ra = wg * 64 + (warp & 3) * 16 + (lane >> 2), rb = ra + 8;
+        const int qa = q0 + ra / g, qb = q0 + rb / g;
+        const float rcap2 = cap > 0.f ? 2.f * LOG2E / cap : 0.f;
+        float acc[DP / 2];
+#pragma unroll
+        for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+        float m0 = FA_NEG, m1 = FA_NEG;     // running maxima of rows ra, rb
+        float l0 = 0.f, l1 = 0.f;       // this thread's share of their sums
+        const uint32_t sq_wg = sq + wg * 64 * 128;
+        mbar_wait(q_bar, 0);
+
+        for (int t = 0; t < ntiles; ++t) {
+            const int s = t & 1;
+            const int k0 = kbeg + t * BN;
+            const uint32_t skt = sk + s * Lay::TILE, svt = sv + s * Lay::TILE;
+            mbar_wait(full_bar + 8 * s, (t >> 1) & 1);
+
+            // S = Q K^T: DP / 16 steps of 16 along D; 128-byte rows, so a step
+            // inside a 64-column block moves the start address by 32 bytes
+            float sc[32];
+#pragma unroll
+            for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+            wgmma_fence_regs(sc);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < DP / 16; ++kk) {
+                const int c = kk >> 2, ki = kk & 3;
+                wgmma_m64n64k16_ss(
+                    sc, wgmma_desc(sq_wg + c * BM * 128 + ki * 32, 16, 1024),
+                    wgmma_desc(skt + c * BN * 128 + ki * 32, 16, 1024),
+                    kk > 0);
+            }
+            wgmma_commit();
+            wgmma_wait<0>();
+            wgmma_fence_regs(sc);
+
+            // scale, cap, masks (on straddling tiles only), row maxima
+            const bool edge = (causal && k0 + BN - 1 > q0)
+                              || (window > 0 && k0 <= q0 + nq - 1 - window)
+                              || k0 + BN > Skv;
+            float mx0 = m0, mx1 = m1;
+#pragma unroll
+            for (int i = 0; i < 32; ++i) {
+                float x = sc[i] * scale;
+                if (cap > 0.f)
+                    x = cap * (1.f - 2.f * rcp(1.f + ex2(x * rcap2)));
+                if (edge) {
+                    const int kj =
+                        k0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+                    const int qi = (i & 2) ? qb : qa;
+                    bool ok = kj < Skv;
+                    if (causal) ok = ok && kj <= qi;
+                    if (window > 0) ok = ok && qi - kj < window;
+                    if (!ok) x = FA_NEG;
+                }
+                sc[i] = x;
+                if (i & 2)
+                    mx1 = fmaxf(mx1, x);
+                else
+                    mx0 = fmaxf(mx0, x);
+            }
+            mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+            mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+            mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+            mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+            const float al0 = ex2((m0 - mx0) * LOG2E);
+            const float al1 = ex2((m1 - mx1) * LOG2E);
+            m0 = mx0;
+            m1 = mx1;
+            float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+            for (int i = 0; i < 32; ++i) {
+                const float p = ex2((sc[i] - ((i & 2) ? m1 : m0)) * LOG2E);
+                sc[i] = p;
+                if (i & 2)
+                    s1 += p;
+                else
+                    s0 += p;
+            }
+            l0 = l0 * al0 + s0;
+            l1 = l1 * al1 + s1;
+            // P in bf16 as the A operand: keys 16 kk .. 16 kk + 15 are the
+            // accumulator registers 8 kk .. 8 kk + 7, already in A's layout
+            uint32_t pa[4][4];
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+                pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
+                pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+                pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+                pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+            }
+#pragma unroll
+            for (int j = 0; j < DP / 8; ++j) {
+                acc[4 * j + 0] *= al0;
+                acc[4 * j + 1] *= al0;
+                acc[4 * j + 2] *= al1;
+                acc[4 * j + 3] *= al1;
+            }
+
+            // O += P V: 4 steps of 16 keys (2048 bytes of V rows each); V is
+            // MN-major: 64-column blocks BN * 128 bytes apart, 8-key groups
+            // 1024 bytes apart
+            wgmma_fence_regs(acc);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+                pv_product<DP>(acc, pa[kk],
+                               wgmma_desc(svt + kk * 2048, BN * 128, 1024));
+            wgmma_commit();
+            wgmma_wait<0>();
+            wgmma_fence_regs(acc);
+            __syncwarp();
+            if (lane == 0) mbar_arrive(empty_bar + 8 * s);
+        }
+
+        l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+        l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+        l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+        l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+        const float i0 = 1.f / fmaxf(l0, 1e-30f), i1 = 1.f / fmaxf(l1, 1e-30f);
+        __nv_bfloat16* oa =
+            (ra < rows && ra / g < nq)
+                ? o + (((size_t)b * Sq + qa) * Hq + hk * g + ra % g) * D
+                : nullptr;
+        __nv_bfloat16* ob =
+            (rb < rows && rb / g < nq)
+                ? o + (((size_t)b * Sq + qb) * Hq + hk * g + rb % g) * D
+                : nullptr;
+#pragma unroll
+        for (int j = 0; j < DP / 8; ++j) {
+            const int col = 8 * j + 2 * (lane & 3);
+            if (col < D) {
+                if (oa)
+                    *reinterpret_cast<__nv_bfloat162*>(oa + col) =
+                        __floats2bfloat162_rn(acc[4 * j] * i0,
+                                              acc[4 * j + 1] * i0);
+                if (ob)
+                    *reinterpret_cast<__nv_bfloat162*>(ob + col) =
+                        __floats2bfloat162_rn(acc[4 * j + 2] * i1,
+                                              acc[4 * j + 3] * i1);
+            }
+        }
+    }
+}
+
+typedef CUresult (*fa_encode_fn)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, through the runtime (so the
+// library needs no link against libcuda)
+static fa_encode_fn fa_encoder() {
+    static fa_encode_fn fn = nullptr;
+    if (fn == nullptr) {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult qr;
+#if CUDART_VERSION >= 12050
+        cudaError_t e = cudaGetDriverEntryPointByVersion(
+            "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &qr);
+#else
+        cudaError_t e = cudaGetDriverEntryPoint(
+            "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &qr);
+#endif
+        if (e == cudaSuccess && qr == cudaDriverEntryPointSuccess)
+            fn = (fa_encode_fn)p;
+    }
+    return fn;
+}
+
+// a 4-D bf16 map over (D, H, S, B), contiguous, with a box of
+// (64, bh, bs, 1): 128-byte rows, 128-byte swizzle, zero fill outside
+static bool fa_map(CUtensorMap* map, const void* ptr, int D, int H, int S,
+                   int B, int bh, int bs) {
+    fa_encode_fn enc = fa_encoder();
+    if (enc == nullptr) return false;
+    cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
+                          (cuuint64_t)B};
+    cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
+                             (cuuint64_t)S * H * D * 2};
+    cuuint32_t box[4] = {64, (cuuint32_t)bh, (cuuint32_t)bs, 1};
+    cuuint32_t estr[4] = {1, 1, 1, 1};
+    return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+               const_cast<void*>(ptr), dims, strides, box, estr,
+               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DP>
+static int flash_wgmma_launch_t(const void* q, const void* k, const void* v,
+                                void* o, int B, int Sq, int Skv, int Hq,
+                                int Hkv, int D, int causal, int window,
+                                float cap, float scale,
+                                cudaStream_t stream) {
+    const int g = Hq / Hkv;
+    const int tq = fa::BM / g;
+    CUtensorMap qm, km, vm;
+    if (!fa_map(&qm, q, D, Hq, Sq, B, g, tq)
+        || !fa_map(&km, k, D, Hkv, Skv, B, 1, fa::BN)
+        || !fa_map(&vm, v, D, Hkv, Skv, B, 1, fa::BN))
+        return (int)cudaErrorInvalidValue;
+    const int smem = fa::Layout<DP>::BYTES;
+    auto kern = flash_fwd_wgmma<DP>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid(B * Hkv, (Sq + tq - 1) / tq);
+    kern<<<grid, fa::THREADS, smem, stream>>>(
+        qm, km, vm, (__nv_bfloat16*)o, Sq, Skv, Hq, Hkv, D, g, tq, causal,
+        window, cap, scale);
+    return (int)cudaGetLastError();
+}
+
+// bf16 q, k, v, o, contiguous and 16-byte aligned; window <= 0: none;
+// cap <= 0: none.  The wrapper has checked D <= 256, D % 8 == 0,
+// Hq % Hkv == 0 and Hq / Hkv <= 64.
+extern "C" int flash_attention_bf16_launch(const void* q, const void* k,
+                                           const void* v, void* o, int B,
+                                           int Sq, int Skv, int Hq, int Hkv,
+                                           int D, int causal, int window,
+                                           float cap, float scale,
+                                           void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
-    if (dtype == 0)
-        return flash_launch_d<float>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D,
-                                     causal, window, cap, scale, s);
-    return flash_launch_d<__nv_bfloat16>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D,
+    if (D <= 64)
+        return flash_wgmma_launch_t<64>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D,
+                                        causal, window, cap, scale, s);
+    if (D <= 128)
+        return flash_wgmma_launch_t<128>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D,
                                          causal, window, cap, scale, s);
+    return flash_wgmma_launch_t<256>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D,
+                                     causal, window, cap, scale, s);
 }

@@ -1,6 +1,6 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``: nine sources,
-K1-K10; K4 and K6 share ``dtw_band.cu``, and K4, K5 and K6 the body in
-``dtw_band.cuh``).
+K1-K10; K4 and K6 share ``dtw_band.cu``, and K4, K6 and K5's scratch
+form the body in ``dtw_band.cuh``).
 
 Each source is compiled by its own ``nvcc`` process, all started together,
 for ``sm_90a``; the objects are linked into one shared library with a
@@ -44,13 +44,19 @@ _SIGNATURES = {
                                      _P], _I),
     "dtw_band_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
     "dtw_band_step_launch": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
-    "dtw_band_stream_launch": ([_P, _P, _P, _P, _P, _I, _LL, _I, _I, _I,
-                                _P], _I),
+    "dtw_band_stream_rows_launch": ([_P, _P, _P, _P, _LL, _I, _I, _I, _P],
+                                    _I),
+    "dtw_band_stream_cluster_launch": ([_P, _P, _P, _P, _LL, _I, _I, _I, _I,
+                                        _P], _I),
+    "dtw_band_stream_scratch_launch": ([_P, _P, _P, _P, _P, _I, _LL, _I, _I,
+                                        _I, _P], _I),
     "sketch_bound_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
     "sketch_bound_smem_bytes": ([_I], ctypes.c_longlong),
     "lb_keogh_launch": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
-    "flash_attention_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                _I, _I, _F, _F, _P], _I),
+    "flash_attention_f32_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                    _I, _I, _F, _F, _P], _I),
+    "flash_attention_bf16_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                     _I, _I, _F, _F, _P], _I),
     "mamba_scan_launch": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _P], _I),
     "rt_error_string": ([_I], ctypes.c_char_p),
@@ -145,8 +151,9 @@ def check(rc: int, what: str) -> None:
 # so a run can show that a path went through the kernel.
 COUNTS: dict[str, int] = dict.fromkeys(
     ("envelope", "lb_enhanced", "lb_enhanced_pairwise", "dtw_band",
-     "dtw_band_stream", "dtw_band_step", "sketch_bound", "lb_keogh",
-     "flash_attention", "mamba_scan"), 0)
+     "dtw_band_stream", "dtw_band_stream_cluster", "dtw_band_stream_scratch",
+     "dtw_band_step", "sketch_bound", "lb_keogh", "flash_attention",
+     "flash_attention_f32", "mamba_scan"), 0)
 
 
 def reset_counts() -> None:

@@ -1,5 +1,6 @@
 """Banded-DTW wrappers on the card: K4 and K6 (csrc/dtw_band.cu) and K5
-(csrc/dtw_band_stream.cu), one entry point, ``dtw_band_cuda``.
+(csrc/dtw_band_stream.cu, three forms), one entry point,
+``dtw_band_cuda``.
 
 - K4 replaces ``src/repro/kernels/dtw_band.py:dtw_band_pallas``
   (``_dtw_band_kernel_blocked``): one block per pair, threads over the
@@ -9,14 +10,22 @@
 - K6 replaces ``_dtw_band_kernel`` (``early_exit=False``): the same
   kernel with the frontier tested at every anti-diagonal, dead state
   poisoned to ``+inf`` and no early return.  Equal outputs; a baseline.
-- K5 replaces ``_dtw_band_pallas_stream``: the band state in a
-  device-memory scratch of ``(grid, 2, 2 wb + 1)`` floats allocated
-  here, a persistent grid of blocks looping over pairs, for bands whose
-  two buffers do not fit a block's shared memory.
+- K5 replaces ``_dtw_band_pallas_stream``, for bands whose two buffers
+  do not fit a block's shared memory.  ``k5_form(L, w)`` picks one of
+  three forms: ``"rows"`` (L <= 20480), one block of 512 threads per
+  pair, each thread K <= 40 consecutive rows in registers, the block
+  sweeping K anti-diagonals a step; ``"cluster"`` (wb <= 231423),
+  S_{d-1} and S_{d-2} interleaved in one shared-memory buffer of
+  ``2 wb + 1`` slots cut into slices over a thread-block cluster of 2-8
+  blocks, the slice edges read through distributed shared memory;
+  ``"scratch"``, the band state in a device-memory scratch of
+  ``(grid, 2, 2 wb + 1)`` floats allocated here, a persistent grid of
+  blocks looping over pairs.
 
-The three share one kernel body (``csrc/dtw_band.cuh``).  Bound on this
-card: FP32 operations, 5 per band cell over ``L(2w+1) - w(w+1)`` cells
-per pair (6 for K6), against 8 L bytes per pair.
+K4, K6 and form ``"scratch"`` share one kernel body
+(``csrc/dtw_band.cuh``); the two on-chip forms have their own.  Bound on
+this card: FP32 operations, 5 per band cell over ``L(2w+1) - w(w+1)``
+cells per pair (6 for K6), against 8 L bytes per pair.
 ``dtw_band_route`` decides K4 against K5 from ``(L, w)``.
 """
 
@@ -37,7 +46,15 @@ _INF = float("inf")
 # definition of the K4/K5 crossover (csrc/dtw_band.cu launches what it
 # admits)
 _RESIDENT_SMEM_BYTES = 232448 - 1024
-# K5's persistent grid: blocks per SM (fewer when there are fewer pairs)
+# K5's on-chip forms: the longest series form "rows" holds (512 threads of
+# at most 40 rows), the floats of band state one block of form "cluster"
+# holds, and the largest portable thread-block cluster
+K5_ROWS_MAX_L = 512 * 40
+K5_BLOCK_FLOATS = _RESIDENT_SMEM_BYTES // 4
+K5_MAX_CLUSTER = 8
+K5_FORMS = ("rows", "cluster", "scratch")
+# K5's scratch form: persistent-grid blocks per SM (fewer when there are
+# fewer pairs)
 STREAM_BLOCKS_PER_SM = 2
 
 
@@ -50,15 +67,39 @@ def dtw_band_route(L: int, w: int | None) -> str:
             else "stream")
 
 
+def k5_form(L: int, w: int | None) -> str:
+    """K5's form for ``(L, w)``: ``"rows"`` while L <= 20480,
+    ``"cluster"`` while the ``2 wb + 1`` slots of the band fit
+    ``K5_MAX_CLUSTER`` blocks (wb <= 231423), else ``"scratch"``."""
+    wb = _band_width(L, w)
+    if L <= K5_ROWS_MAX_L:
+        return "rows"
+    if 2 * wb + 1 <= K5_MAX_CLUSTER * K5_BLOCK_FLOATS:
+        return "cluster"
+    return "scratch"
+
+
+def k5_cluster_size(L: int, w: int | None) -> int:
+    """Blocks of K5's cluster form for ``(L, w)``: the fewest whose
+    slices hold ``2 wb + 1`` slots, at least 2 (3 at L = 65536, w = L)."""
+    wb = _band_width(L, w)
+    return max(2, -(-(2 * wb + 1) // K5_BLOCK_FLOATS))
+
+
 def dtw_band_cuda(a: Tensor, b: Tensor, w: int | None = None, cutoff=None,
                   *, row_block: int | None = None, early_exit: bool = True,
-                  stream: bool = False) -> Tensor:
+                  stream: bool = False, form: str | None = None,
+                  cluster: int | None = None) -> Tensor:
     """Pairwise banded DTW ``(P, L), (P, L) -> (P,)`` on the card, with
     the row-block abandon rule of ``core.dtw.dtw_band_blocked``.
 
-    ``stream=True`` runs K5 at any shape; otherwise K4, or K6 with
-    ``early_exit=False`` (which tests every anti-diagonal, so
-    ``row_block`` does not apply).  K4 and K6 raise where
+    ``stream=True`` runs K5 at any shape, in the form ``k5_form(L, w)``
+    picks; ``form`` (one of ``K5_FORMS``) runs another, so each form can
+    be held against the plain version at small shapes; ``cluster`` sets
+    the blocks of form ``"cluster"`` (2 to ``K5_MAX_CLUSTER``; by default
+    ``k5_cluster_size``), so each cluster size can be held too.
+    Otherwise K4, or K6 with ``early_exit=False`` (which tests every
+    anti-diagonal, so ``row_block`` does not apply).  K4 and K6 raise where
     ``dtw_band_route`` says the band needs K5; K5 implies early exit, as
     the JAX streaming kernel does.
     """
@@ -73,6 +114,27 @@ def dtw_band_cuda(a: Tensor, b: Tensor, w: int | None = None, cutoff=None,
         cut = torch.as_tensor(cutoff, dtype=a.dtype, device=a.device)
         cut = cut.expand(P).contiguous()
     wb = _band_width(L, w)
+    if form is not None:
+        if not stream:
+            raise ValueError("form applies to K5 (stream=True)")
+        if form not in K5_FORMS:
+            raise ValueError(f"form = {form!r}: expected one of {K5_FORMS}")
+        if form == "rows" and L > K5_ROWS_MAX_L:
+            raise ValueError(f"K5 rows form: L = {L} > {K5_ROWS_MAX_L} "
+                             "rows for its 512 threads")
+        if form == "cluster" and k5_form(L, w) == "scratch":
+            raise ValueError(f"K5 cluster form: band half-width {wb} needs "
+                             f"more than {K5_MAX_CLUSTER} blocks")
+    kform = (form or k5_form(L, w)) if stream else None
+    n_cluster = k5_cluster_size(L, w)
+    if cluster is not None:
+        if kform != "cluster":
+            raise ValueError("cluster applies to K5's cluster form")
+        if not n_cluster <= cluster <= K5_MAX_CLUSTER:
+            raise ValueError(f"K5 cluster form: {cluster} blocks, expected "
+                             f"{n_cluster} to {K5_MAX_CLUSTER} for band "
+                             f"half-width {wb}")
+        n_cluster = cluster
     if not stream and dtw_band_route(L, w) == "stream":
         raise ValueError(f"dtw_band kernel: band half-width {wb} needs "
                          "more shared memory than a block holds "
@@ -85,17 +147,28 @@ def dtw_band_cuda(a: Tensor, b: Tensor, w: int | None = None, cutoff=None,
     R = row_block if row_block is not None else row_block_policy(L)
     R = max(1, min(R, D))
     sp = stream_ptr(a.device)
-    if stream:
+    if kform == "rows":
+        _build.check(lib.dtw_band_stream_rows_launch(
+            a.data_ptr(), b.data_ptr(), cut.data_ptr(), out.data_ptr(), P,
+            L, wb, R, sp), "dtw_band_stream")
+        _build.COUNTS["dtw_band_stream"] += 1
+    elif kform == "cluster":
+        _build.check(lib.dtw_band_stream_cluster_launch(
+            a.data_ptr(), b.data_ptr(), cut.data_ptr(), out.data_ptr(), P,
+            L, wb, R, n_cluster, sp), "dtw_band_stream_cluster")
+        _build.COUNTS["dtw_band_stream_cluster"] += 1
+    elif kform == "scratch":
         sms = torch.cuda.get_device_properties(a.device).multi_processor_count
         grid = min(P, STREAM_BLOCKS_PER_SM * sms)
         # freed at return: the caching allocator gives it out again only to
         # work queued after this launch on the same stream
         scratch = torch.empty((grid, 2, 2 * wb + 1), dtype=a.dtype,
                               device=a.device)
-        _build.check(lib.dtw_band_stream_launch(
+        _build.check(lib.dtw_band_stream_scratch_launch(
             a.data_ptr(), b.data_ptr(), cut.data_ptr(), out.data_ptr(),
-            scratch.data_ptr(), grid, P, L, wb, R, sp), "dtw_band_stream")
-        _build.COUNTS["dtw_band_stream"] += 1
+            scratch.data_ptr(), grid, P, L, wb, R, sp),
+            "dtw_band_stream_scratch")
+        _build.COUNTS["dtw_band_stream_scratch"] += 1
     elif early_exit:
         _build.check(lib.dtw_band_launch(a.data_ptr(), b.data_ptr(),
                                          cut.data_ptr(), out.data_ptr(), P,

@@ -1,18 +1,26 @@
 """K9 wrapper: fused attention forward on the card
-(csrc/flash_attention.cu).
+(csrc/flash_attention.cu), in two forms chosen by the input type alone.
 
 Replaces ``src/repro/kernels/flash_attention.py:flash_attention_pallas``
 (``_flash_fwd_kernel``).  Bound on this card: operations, 4 D per
 unmasked (query head, key) pair (two products of D multiply-adds); at
 gemma2-2b's B = 2, S = 8192, Hq = 8, Hkv = 4, D = 256 a global layer is
-~0.55 TFLOP against ~0.2 GB of q, k, v and o.  Design: one block per
-(batch x kv head, query tile) with the g query heads of the kv head
-folded into its 64 rows, key tiles of 32 staged in shared memory, the
-online softmax in f32 on CUDA cores, and key tiles outside the causal
-wedge or the window skipped.  Forward only: inputs that require a
-gradient are refused (training, ROADMAP Queue 1 item 13(b), is to
-recompute through the plain version, as ``repro.kernels.ops._fa_bwd``
-does).
+~0.55 TFLOP against ~0.2 GB of q, k, v and o.  Both forms fold the g
+query heads of a kv head into a block's rows and skip key tiles outside
+the causal wedge or the window.
+
+- bfloat16 (launch count ``flash_attention``): tensor cores.  Blocks of
+  128 folded rows in two consumer warpgroups, S = Q K^T and O += P V on
+  ``wgmma`` with f32 accumulators, K/V tiles of 64 keys by TMA into a
+  two-stage ring, the online softmax in registers, P rounded to bf16 for
+  the PV product.
+- float32 (``flash_attention_f32``): CUDA cores in f32, blocks of 64
+  rows, key tiles of 32 in shared memory; the f32 tolerance (1e-4) is
+  below what bf16 or TF32 products reach.
+
+Forward only: inputs that require a gradient are refused (training,
+ROADMAP Queue 1 item 13(b), is to recompute through the plain version,
+as ``repro.kernels.ops._fa_bwd`` does).
 """
 
 from __future__ import annotations
@@ -27,7 +35,7 @@ Tensor = torch.Tensor
 # query rows (query, head) of one block: g = Hq / Hkv may not exceed it
 MAX_GROUP = 64
 MAX_HEAD_DIM = 256
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
@@ -70,15 +78,25 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
         raise ValueError(f"window = {window}: expected None or >= 1")
     if score_cap is not None and not score_cap > 0:
         raise ValueError(f"score_cap = {score_cap}: expected None or > 0")
+    bf16 = q.dtype == torch.bfloat16
+    if bf16 and D % 8:
+        raise ValueError(f"head dim {D}: the bfloat16 form loads rows by "
+                         "TMA, which needs a multiple of 8")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    if bf16 and any(x.data_ptr() % 16 for x in (q, k, v, out)):
+        raise ValueError("q, k, v: the bfloat16 form needs 16-byte "
+                         "aligned storage")
     lib = _build.library()
-    _build.check(lib.flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _DTYPES[q.dtype], B, Sq, Skv, Hq, Hkv, D, int(bool(causal)),
+    launch, name = ((lib.flash_attention_bf16_launch, "flash_attention")
+                    if bf16 else
+                    (lib.flash_attention_f32_launch, "flash_attention_f32"))
+    _build.check(launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
+        Skv, Hq, Hkv, D, int(bool(causal)),
         0 if window is None else int(window),
         0.0 if score_cap is None else float(score_cap), float(D ** -0.5),
-        stream_ptr(q.device)), "flash_attention")
-    _build.COUNTS["flash_attention"] += 1
+        stream_ptr(q.device)), name)
+    _build.COUNTS[name] += 1
     return out

@@ -5,15 +5,16 @@ made in a fixture, never at import).  Run on a machine with a card:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
-Tolerances: envelopes, banded DTW (K4, the per-step K6 and the
-band-streaming K5), the bands-only LB_ENHANCED and the sketch bound are
-bit-equal with the same +-inf positions; the full
+Tolerances: envelopes, banded DTW (K4, the per-step K6 and the three
+forms of the wide-band K5), the bands-only LB_ENHANCED and the sketch
+bound are bit-equal with the same +-inf positions; the full
 LB_ENHANCED forms and LB_Keogh agree to rtol 1e-5, atol 1e-6 (their
 L-term sums run in another order).  Flash attention (K9) agrees with its
-plain version to rtol 1e-4, atol 1e-5 in float32 and to rtol 1e-2, atol
-1e-2 in bfloat16 (one bf16 rounding of outputs whose f32 sums ran in
-another order); the selective scan (K10) to rtol 1e-5, atol 1e-6 (its
-N-sum runs in another order).
+plain version to rtol 1e-4, atol 1e-5 in float32 (its CUDA-core form)
+and to rtol 1e-2, atol 1e-2 in bfloat16 (its tensor-core form: P is
+rounded to bf16 for the PV product, and the outputs are bf16); the
+selective scan (K10) to rtol 1e-5, atol 1e-6 (its N-sum runs in another
+order).
 """
 
 import numpy as np
@@ -23,9 +24,12 @@ import torch
 from repro_torch.data import make_dataset
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.dtw_band import (
+    K5_FORMS,
+    K5_ROWS_MAX_L,
     STREAM_BLOCKS_PER_SM,
     dtw_band_cuda,
     dtw_band_route,
+    k5_form,
 )
 from repro_torch.kernels.envelope import envelope_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
@@ -139,9 +143,9 @@ def test_dtw_band_kernel_bit_equal_with_cutoffs(dev, P, L, w):
 
 @pytest.mark.parametrize("P,L,w", DTW_SWEEP)
 def test_stream_and_step_kernels_bit_equal_at_the_sweep(dev, P, L, w):
-    """K5 forced (``stream=True``) and K6 (``early_exit=False``) at K4's
-    sweep shapes, with and without cutoffs (every fifth slot -inf): equal
-    to the plain versions and to K4."""
+    """K5 forced (``stream=True``) in each of its three forms and K6
+    (``early_exit=False``) at K4's sweep shapes, with and without cutoffs
+    (every fifth slot -inf): equal to the plain versions and to K4."""
     a, b = _rand(dev, 7, P, L), _rand(dev, 8, P, L)
     exact = ref.dtw_band_ref(a, b, w)
     g = torch.Generator().manual_seed(9)
@@ -151,9 +155,12 @@ def test_stream_and_step_kernels_bit_equal_at_the_sweep(dev, P, L, w):
         k4 = dtw_band_cuda(a, b, w, c)
         want = ref.dtw_band_ref(a, b, w, c)
         _check(k4, want, exact=True)
-        _check(dtw_band_cuda(a, b, w, c, stream=True), want, exact=True)
-        _check(dtw_band_cuda(a, b, w, c, stream=True, row_block=7),
-               ref.dtw_band_ref(a, b, w, c, row_block=7), exact=True)
+        for form in K5_FORMS:
+            _check(dtw_band_cuda(a, b, w, c, stream=True, form=form), want,
+                   exact=True)
+            _check(dtw_band_cuda(a, b, w, c, stream=True, row_block=7,
+                                 form=form),
+                   ref.dtw_band_ref(a, b, w, c, row_block=7), exact=True)
         step = dtw_band_cuda(a, b, w, c, early_exit=False)
         _check(step, ref.dtw_band_ref(a, b, w, c, row_block=1), exact=True)
         _check(step, k4, exact=True)
@@ -161,9 +168,11 @@ def test_stream_and_step_kernels_bit_equal_at_the_sweep(dev, P, L, w):
 
 @pytest.mark.parametrize("with_cutoff", [False, True])
 def test_stream_kernel_loops_over_pairs_past_its_grid(dev, with_cutoff):
-    """P = 600 pairs, more than K5's persistent grid (2 blocks per SM), so
-    its blocks run several pairs in turn (the scratch re-initialised per
-    pair, -inf slots skipped): bit-equal to the plain version and to K4."""
+    """P = 600 pairs, more than the persistent grid of K5's scratch form
+    (2 blocks per SM), so its blocks run several pairs in turn (the
+    scratch re-initialised per pair, -inf slots skipped): bit-equal to the
+    plain version, to K4 and to K5's other forms (a block or a cluster a
+    pair)."""
     P, L, w = 600, 97, 24
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     assert P > STREAM_BLOCKS_PER_SM * sms
@@ -175,9 +184,12 @@ def test_stream_kernel_loops_over_pairs_past_its_grid(dev, with_cutoff):
             0.5 + torch.rand(P, generator=g).to(dev))
         cut[::7] = float("-inf")
     want = ref.dtw_band_ref(a, b, w, cut)
-    got = dtw_band_cuda(a, b, w, cut, stream=True)
+    got = dtw_band_cuda(a, b, w, cut, stream=True, form="scratch")
     _check(got, want, exact=True)
     _check(got, dtw_band_cuda(a, b, w, cut), exact=True)
+    for form in ("rows", "cluster"):
+        _check(dtw_band_cuda(a, b, w, cut, stream=True, form=form), want,
+               exact=True)
     if with_cutoff:
         assert torch.isposinf(got[::7]).all()
         # cutoffs below a pair's DTW kill it too, some abandon mid-sweep
@@ -187,8 +199,8 @@ def test_stream_kernel_loops_over_pairs_past_its_grid(dev, with_cutoff):
 
 def test_stream_kernel_just_over_the_crossover(dev):
     """wb = 14464 (w = L = 14465), the first band K4 cannot hold: the op
-    routes to K5, bit-equal to the plain version, a lone cutoff kills
-    one pair."""
+    routes to K5 (its rows form), bit-equal to the plain version, a lone
+    cutoff kills one pair."""
     L = 14465
     assert dtw_band_route(L, L) == "stream"
     assert dtw_band_route(L - 1, L - 1) == "resident"
@@ -203,6 +215,60 @@ def test_stream_kernel_just_over_the_crossover(dev):
     got_c = ops.dtw_band_op(a, b, L, cut, early_exit=False)
     _check(got_c, ref.dtw_band_ref(a, b, L, cut), exact=True)
     assert torch.isfinite(got_c[0]) and torch.isposinf(got_c[1])
+
+
+@pytest.mark.parametrize("L,form", [
+    (14465, "rows"),                        # just over K4
+    (K5_ROWS_MAX_L, "rows"),                # the (a)/(b) edge
+    (K5_ROWS_MAX_L + 1, "cluster"),
+    (65536, "cluster"),                     # 3 blocks a pair
+])
+def test_stream_forms_at_their_boundary_shapes(dev, L, form):
+    """Each K5 form where ``k5_form`` puts its edges (w = L, two pairs),
+    without cutoffs and with one that lets a pair finish and one that
+    kills it: bit-equal to the plain version, launched under its own
+    count.  The scratch form starts past wb = 231423, too long for the
+    plain version here; it runs forced at the first shape."""
+    assert k5_form(L, L) == form
+    a, b = _rand(dev, 50, 2, L), _rand(dev, 51, 2, L)
+    want = ref.dtw_band_ref(a, b, L)
+    cut = torch.stack([want[0] * 2, want[1] * 0.5])
+    want_c = ref.dtw_band_ref(a, b, L, cut)
+    forms = [form, "scratch"] if L == 14465 else [form]
+    for f in forms:
+        _build.reset_counts()
+        _check(dtw_band_cuda(a, b, L, stream=True, form=f), want, exact=True)
+        _check(dtw_band_cuda(a, b, L, cut, stream=True, form=f), want_c,
+               exact=True)
+        name = {"rows": "dtw_band_stream"}.get(f, f"dtw_band_stream_{f}")
+        assert _build.counts()[name] == 2
+        assert sum(_build.counts().values()) == 2
+    assert torch.isfinite(want_c[0])
+
+
+@pytest.mark.parametrize("n", [2, 3, 4, 5, 6, 7, 8])
+def test_stream_cluster_form_at_every_cluster_size(dev, n):
+    """K5's cluster form forced to n blocks a pair (a cluster of n, the
+    band's slots in n slices, some of them empty at w = 3), with and
+    without cutoffs: bit-equal to the plain version.  Fewer blocks than
+    the band needs, or more than a portable cluster, are refused."""
+    P, L = 5, 301
+    a, b = _rand(dev, 60, P, L), _rand(dev, 61, P, L)
+    g = torch.Generator().manual_seed(62)
+    for w in (3, 40, L):
+        exact = ref.dtw_band_ref(a, b, w)
+        cut = exact * (0.5 + torch.rand(P, generator=g).to(dev))
+        cut[::4] = float("-inf")
+        for c, R in ((None, None), (cut, None), (cut, 7)):
+            _check(dtw_band_cuda(a, b, w, c, row_block=R, stream=True,
+                                 form="cluster", cluster=n),
+                   ref.dtw_band_ref(a, b, w, c, row_block=R), exact=True)
+    for bad in (1, 9):
+        with pytest.raises(ValueError, match="blocks"):
+            dtw_band_cuda(a, b, L, stream=True, form="cluster", cluster=bad)
+    wide = _rand(dev, 63, 1, 65536)
+    with pytest.raises(ValueError, match="blocks"):
+        dtw_band_cuda(wide, wide, 65536, stream=True, cluster=2)
 
 
 def test_envelope_kernel_long_series_full_window(dev):
@@ -239,9 +305,12 @@ def test_wrappers_count_launches_and_refuse_bad_input(dev):
     dtw_band_cuda(x, x, 3, torch.zeros(4, device=dev))
     assert _build.counts() == {"envelope": 1, "lb_enhanced": 0,
                                "lb_enhanced_pairwise": 0, "dtw_band": 2,
-                               "dtw_band_stream": 0, "dtw_band_step": 0,
-                               "sketch_bound": 0, "lb_keogh": 0,
-                               "flash_attention": 0, "mamba_scan": 0}
+                               "dtw_band_stream": 0,
+                               "dtw_band_stream_cluster": 0,
+                               "dtw_band_stream_scratch": 0,
+                               "dtw_band_step": 0, "sketch_bound": 0,
+                               "lb_keogh": 0, "flash_attention": 0,
+                               "flash_attention_f32": 0, "mamba_scan": 0}
     with pytest.raises(ValueError, match="float32"):
         dtw_band_cuda(x.double(), x.double(), 3)
     with pytest.raises(ValueError, match="contiguous"):
@@ -374,6 +443,27 @@ def test_flash_attention_kernel(dev, B, Sq, Skv, Hq, Hkv, D, causal, window,
     torch.testing.assert_close(got.float(), want.float(), **tol)
 
 
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,D,causal,window,cap,dtype",
+                         FLASH_SWEEP)
+def test_flash_attention_bf16_form_over_the_sweep(dev, B, Sq, Skv, Hq, Hkv,
+                                                  D, causal, window, cap,
+                                                  dtype):
+    """Every sweep shape in bfloat16 (D = 96, g = 8, ragged and unequal
+    Sq / Skv, window, cap): the tensor-core form, within bf16's
+    tolerance, launched under its own count (the f32 form's stays 0)."""
+    q = _rand(dev, 20, B, Sq, Hq, D).bfloat16()
+    k = _rand(dev, 21, B, Skv, Hkv, D).bfloat16()
+    v = _rand(dev, 22, B, Skv, Hkv, D).bfloat16()
+    _build.reset_counts()
+    got = flash_attention_cuda(q, k, v, causal, window, cap)
+    assert _build.counts()["flash_attention"] == 1
+    assert _build.counts()["flash_attention_f32"] == 0
+    want = ref.flash_attention_ref(q, k, v, causal, window, cap)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                               atol=1e-2)
+
+
 # K10 sweep: N in {4, 16, 64}, S and C multiples of no tile, nonzero h0
 MAMBA_SWEEP = [(2, 33, 70, 4), (3, 100, 300, 16), (1, 17, 129, 64),
                (2, 1, 5, 16), (1, 50, 128, 32)]
@@ -402,7 +492,8 @@ def test_lm_kernel_wrappers_count_and_refuse(dev):
             -_rand(dev, 34, 8, 4).abs(), _rand(dev, 35, 1, 6, 4),
             _rand(dev, 36, 1, 6, 4), _rand(dev, 37, 1, 8, 4)]
     mamba_scan_cuda(*args)
-    assert _build.counts()["flash_attention"] == 1
+    assert _build.counts()["flash_attention_f32"] == 1
+    assert _build.counts()["flash_attention"] == 0
     assert _build.counts()["mamba_scan"] == 1
     with pytest.raises(ValueError, match="gradient"):
         flash_attention_cuda(q.requires_grad_(), kv, kv)
@@ -422,11 +513,15 @@ def test_lm_kernel_wrappers_count_and_refuse(dev):
             _rand(dev, 45, 1, 8, 65)]
     with pytest.raises(ValueError, match="registers"):
         mamba_scan_cuda(*wide)
-    assert _build.counts()["flash_attention"] == 1
+    with pytest.raises(ValueError, match="multiple of 8"):
+        odd = _rand(dev, 46, 1, 4, 2, 12).bfloat16()
+        flash_attention_cuda(odd, odd, odd)
+    assert _build.counts()["flash_attention_f32"] == 1
+    assert _build.counts()["flash_attention"] == 0
     assert _build.counts()["mamba_scan"] == 1
 
 
-@pytest.mark.parametrize("name,kernel", [("gemma2-2b", "flash_attention"),
+@pytest.mark.parametrize("name,kernel", [("gemma2-2b", "flash_attention_f32"),
                                          ("falcon-mamba-7b", "mamba_scan")])
 def test_lm_prefill_on_the_card_equals_the_cpu(dev, name, kernel):
     """A reduced model (f32) on the card through K9 / K10 against the same

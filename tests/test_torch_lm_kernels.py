@@ -93,6 +93,101 @@ def test_flash_attention_over_a_cache_matches_jax(window):
                                    atol=1e-6)
 
 
+
+# ---- K9's bf16 form (csrc/flash_attention.cu, flash_fwd_wgmma), emulated
+# Only a card runs it; on the CPU, _k9_tensor_core repeats its
+# arithmetic in f32 torch -- blocks of 128 folded rows, key tiles of 64
+# (zero-filled past Skv), tiles outside the causal wedge or the window
+# skipped, S = Q K^T from the bf16 inputs with the scale applied after the
+# product, the cap as 1 - 2 / (1 + 2^(2 y log2 e)), masked scores at the
+# finite _NEG, the online softmax with l summing the f32 P, and P rounded
+# to bf16 for the PV product -- and is held against the Pallas kernel in
+# interpret mode on the same bf16 inputs at K9's bf16 tolerance.
+
+_LOG2E = 1.4426950408889634
+_NEG = -2.3819763e38
+
+
+def _k9_tensor_core(q, k, v, causal, window, cap):
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    tq = 128 // g
+    pad = (-Skv) % 64
+    kf = torch.nn.functional.pad(k.float(), (0, 0, 0, 0, 0, pad))
+    vf = torch.nn.functional.pad(v.float(), (0, 0, 0, 0, 0, pad))
+    out = torch.zeros(B, Sq, Hq, D)
+    for b in range(B):
+        for hk in range(Hkv):
+            for q0 in range(0, Sq, tq):
+                nq = min(tq, Sq - q0)
+                Q = q[b, q0:q0 + nq, hk * g:(hk + 1) * g].float()
+                Q = Q.reshape(nq * g, D)
+                qi = torch.arange(q0, q0 + nq).repeat_interleave(g)
+                kbeg, kend = 0, Skv
+                if causal:
+                    kend = min(Skv, q0 + nq)
+                if window is not None:
+                    kbeg = max(0, q0 - window + 1)
+                m = torch.full((nq * g,), _NEG)
+                l = torch.zeros(nq * g)
+                acc = torch.zeros(nq * g, D)
+                for k0 in range(kbeg // 64 * 64, kend, 64):
+                    kj = torch.arange(k0, k0 + 64)
+                    s = (Q @ kf[b, k0:k0 + 64, hk].T) * D ** -0.5
+                    if cap is not None:
+                        s = cap * (1 - 2 / (1 + torch.exp2(
+                            s * (2 * _LOG2E / cap))))
+                    ok = (kj < Skv)[None, :].expand(nq * g, 64)
+                    if causal:
+                        ok = ok & (kj[None, :] <= qi[:, None])
+                    if window is not None:
+                        ok = ok & (qi[:, None] - kj[None, :] < window)
+                    s = torch.where(ok, s, torch.tensor(_NEG))
+                    mx = torch.maximum(m, s.amax(1))
+                    alpha = torch.exp2((m - mx) * _LOG2E)
+                    p = torch.exp2((s - mx[:, None]) * _LOG2E)
+                    l = l * alpha + p.sum(1)
+                    acc = (acc * alpha[:, None]
+                           + p.bfloat16().float() @ vf[b, k0:k0 + 64, hk])
+                    m = mx
+                o = acc / l.clamp_min(1e-30)[:, None]
+                out[b, q0:q0 + nq, hk * g:(hk + 1) * g] = o.reshape(nq, g, D)
+    return out.bfloat16()
+
+
+# gemma2-2b's geometry (D = 256, g = 2, cap 50, a window, several query
+# blocks and key tiles), g = 8 at D = 96 with ragged S and a cap, and
+# g = 1 at D = 64 without the causal mask, Sq != Skv
+K9_TC_CASES = [
+    (1, 200, 200, 4, 2, 256, True, 96, 50.0),
+    (2, 33, 33, 16, 2, 96, True, None, 30.0),
+    (1, 70, 150, 2, 2, 64, False, None, None),
+    (1, 130, 130, 8, 4, 128, True, None, None),
+]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,D,causal,window,cap", K9_TC_CASES)
+def test_k9_tensor_core_arithmetic_matches_pallas(B, Sq, Skv, Hq, Hkv, D,
+                                                  causal, window, cap):
+    rng = np.random.default_rng(Sq + D)
+    q, k, v = (rng.normal(size=shape).astype(np.float32) for shape in
+               ((B, Sq, Hq, D), (B, Skv, Hkv, D), (B, Skv, Hkv, D)))
+    qb, kb, vb = (_t(x).bfloat16() for x in (q, k, v))
+    got = _k9_tensor_core(qb, kb, vb, causal, window, cap).float().numpy()
+    pallas = flash_attention_pallas(
+        *(jnp.array(x.float().numpy(), dtype=jnp.bfloat16)
+          for x in (qb, kb, vb)),
+        causal=causal, window=window, score_cap=cap, tile_q=32, tile_k=32,
+        interpret=True)
+    np.testing.assert_allclose(got, np.asarray(pallas, dtype=np.float32),
+                               rtol=1e-2, atol=1e-2)
+    # the plain version, in f32 with f32 P, within the same tolerance
+    plain = ref.flash_attention_ref(qb, kb, vb, causal, window, cap)
+    np.testing.assert_allclose(got, plain.float().numpy(), rtol=1e-2,
+                               atol=1e-2)
+
+
 # S and C are multiples of no tile; h0 is nonzero
 SCAN_CASES = [(2, 37, 70, 4, 16, 8), (1, 33, 6, 4, 4, 16),
               (2, 50, 33, 16, 8, 16), (3, 9, 12, 8, 12, 8)]
