@@ -7,13 +7,17 @@
 
 1. prints the card (``nvidia-smi`` name and power limit) and builds the
    nine CUDA sources of K1-K10 from ``src/repro_torch/csrc`` (``nvcc``,
-   ``sm_90a``, one process per source);
+   ``sm_90a``, one process per source), compiling the two redesigned
+   sources once more with ``-Xptxas -v`` alongside; prints a ``ptxas:``
+   line (registers, spill bytes and resident warps per SM of each
+   instantiation of K4's and K6's warp form and of K10; any spill
+   fails);
 2. drives the main path once at full size -- ``build_index`` ->
    ``classify`` (which runs ``nn_search``, guards on by default) on
    N = 16384 store series of length L = 512 (w = 51, V = 4, k = 1,
    Q = 256 queries) -- with every kernel's launch count set to 0 just
-   before and read just after, and records the inputs each kernel was
-   given there;
+   before and read just after (K4 must have run in its warp form only),
+   and records the inputs each kernel was given there;
 3. checks the search: finite distances, neighbour ids equal to the
    kernel brute force for the first 64 queries and to a brute force
    through the plain DTW for the first 8, distances bit-equal;
@@ -22,9 +26,10 @@
    ``cfg = EngineConfig(CascadeConfig(w=51, use_sketch=True),
    auto_plan=True)`` on N = 65536 store series (L = 512, Q = 256), counts
    set to 0 before the build and read after ``classify``; checks that
-   K1-K4 and K7 ran, ids equal the kernel brute force on 32 queries with
-   distances bit-equal, and no guard tripped on either path (every
-   violation counter 0, ``degraded`` 0, no ``GuardWarning``);
+   K1-K4 (K4 in its warp form only) and K7 ran, ids equal the kernel
+   brute force on 32 queries with distances bit-equal, and no guard
+   tripped on either path (every violation counter 0, ``degraded`` 0, no
+   ``GuardWarning``);
 5. guard phase: ``faults.corrupt_dtw(scale=0.05)`` on 4 queries of the
    main-path store, first through the main path's own index (w = 51),
    where it prints the guards' verdict and the LB / DTW ratios that
@@ -40,8 +45,8 @@
    its device span and its K5 device time);
    every DTW there runs in K5's form (a), "rows" (the band
    state does not fit K4's shared memory), so it must have launched and
-   K4 and K5's other forms not; ids and distances equal the kernel brute
-   force for every query and no guard tripped;
+   K4 (in either form) and K5's other forms not; ids and distances equal
+   the kernel brute force for every query and no guard tripped;
 7. LM serve phase, at full width with random weights drawn on the card
    from a seed (bf16 compute and KV cache), each request in its own
    launch-count window: gemma2-2b (26 layers) scores 2 prompts of 8192
@@ -61,8 +66,11 @@
 8. holds each kernel against its plain PyTorch version on the card: at the
    paths' recorded inputs (timed with CUDA events) and over a sweep of
    small shapes (w in {0, 1, L/4, L}, odd L, cutoffs that kill pairs,
-   ``live`` masks with all-dead tiles, ragged sizes); K1, K2 (both forms)
-   and K3 (both forms) also at the long path's inputs; K5 in each of its
+   ``live`` masks with all-dead tiles, ragged sizes); K4 and K6 in each
+   of their two forms at the main path's input (the block form forced,
+   the forms timed in turns) and over the sweep, which crosses the warp
+   form's edge (wb = 255 / 256) and runs row blocks of 7; K1, K2 (both
+   forms) and K3 (both forms) also at the long path's inputs; K5 in each of its
    three forms, forced over the sweep and just over the K4/K5 crossover,
    form (a) also on the long path's largest round with its cutoffs and
    without and on pairs of all its rounds, (a) and (b) at their edge (L =
@@ -81,9 +89,10 @@
    {1, 2, 8}, D in {64, 96, 128, 256}, causal and not, window, cap, ragged
    S), each shape in its own type and in bf16, to rtol 1e-4, atol 1e-5 in
    f32 and 1e-2 in bf16, where the relative RMS error must also stay
-   within 1e-2; K10 at a layer of the falcon prefill and over a
-   sweep (N in {4, 16, 32, 64}, ragged S and C, nonzero h0), to rtol 1e-5,
-   atol 1e-6;
+   within 1e-2; K9 also at the shapes its wrapper repairs (g = 96 in f32
+   and bf16, bf16 D = 100, bf16 storage off 16-byte alignment); K10 at a
+   layer of the falcon prefill and over a sweep (N in {4, 16, 17, 32, 64,
+   128, 256}, ragged S and C, nonzero h0), bit-equal;
 9. prints one ``{"kernels": [...]}`` line and, last, the device line
    ``{"ok": true, "device": {...}}``.
 
@@ -180,18 +189,42 @@ FLASH_SWEEP = [
     (3, 65, 65, 2, 2, 96, False, None, None, "bfloat16"),
     (1, 1, 17, 8, 4, 256, False, None, 50.0, "float32"),
 ]
-# K10 sweep: N in {4, 16, 32, 64}, S and C multiples of no tile, h0 nonzero
+# K10 sweep: N in {4, 16, 17, 32, 64, 128, 256}, S and C multiples of no
+# tile, h0 nonzero
 MAMBA_SWEEP = [(2, 33, 70, 4), (3, 100, 300, 16), (1, 17, 129, 64),
-               (2, 1, 5, 16), (1, 50, 128, 32)]
+               (2, 1, 5, 16), (1, 50, 128, 32), (2, 40, 33, 17),
+               (1, 70, 40, 128), (1, 40, 33, 256)]
 
 
 class SmokeFailure(Exception):
     pass
 
 
+# ptxas reports of the redesigned kernels: the source, and for each
+# instantiation (mangled-name pattern) the record it belongs to and a label
+PTXAS_SOURCES = ("dtw_band.cu", "mamba_scan.cu")
+PTXAS_KERNELS = [
+    (r"_Z20dtw_band_warp_kernelILi(\d+)ELb0E", "dtw_band", "M={}"),
+    (r"_Z20dtw_band_warp_kernelILi(\d+)ELb1E", "dtw_band_step", "M={}"),
+    (r"_Z15dtw_band_kernelILb0ELb0E", "dtw_band_block", "block"),
+    (r"_Z15dtw_band_kernelILb1ELb0E", "dtw_band_step_block", "block"),
+    (r"_Z17mamba_scan_kernelILi(\d+)E", "mamba_scan", "G={}"),
+]
+
+
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
+
+
+def max_sm_clock_hz() -> float:
+    """The card's maximum SM clock (``nvidia-smi``), in Hz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60)
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
 
 
 def card_line() -> str:
@@ -201,6 +234,79 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60)
     check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_start(tmp: Path) -> list:
+    """Compile the redesigned kernels' sources once more with
+    ``-Xptxas -v`` (the build's flags otherwise), one nvcc each, started
+    together; ``ptxas_report`` reads them."""
+    from repro_torch.kernels import _build
+
+    return [subprocess.Popen(
+        [_build._nvcc(), *_build._FLAGS, "-Xptxas", "-v", "-c",
+         str(_build._CSRC / src), "-o", str(tmp / (src + ".o"))],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src in PTXAS_SOURCES]
+
+
+def ptxas_report(procs) -> dict:
+    """``{record name: {"ptxas": {label: {"registers", "spill_bytes"}}}}``
+    from the ``ptxas_start`` processes."""
+    import re
+
+    rep = {}
+    for proc in procs:
+        log, _ = proc.communicate(timeout=600)
+        check(proc.returncode == 0, f"nvcc -Xptxas -v failed:\n{log}")
+        entry = None
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                entry = m.group(1)
+                continue
+            found = None
+            for pat, name, label in PTXAS_KERNELS:
+                km = re.match(pat, entry or "")
+                if km:
+                    found = name, label.format(*km.groups())
+            if found is None:
+                continue
+            info = rep.setdefault(found[0], {"ptxas": {}})["ptxas"]
+            slot = info.setdefault(found[1], {})
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                slot["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                slot["registers"] = int(m.group(1))
+    for name in ("dtw_band", "dtw_band_step", "mamba_scan"):
+        check(name in rep, f"ptxas reported no kernel of {name}")
+        for label, slot in rep[name]["ptxas"].items():
+            check(slot.get("spill_bytes") == 0,
+                  f"{name} {label} spills: {slot}")
+    return rep
+
+
+def occupancy_report(rep: dict) -> dict:
+    """Add each redesigned instantiation's resident warps per SM (CUDA's
+    occupancy calculator at its launch's block size and shared memory)
+    to a ``ptxas_report``: K4's and K6's warp form at the widest band of
+    each M, K10 at N = 8 G."""
+    from repro_torch.kernels import _build
+
+    lib = _build.library()
+    got = {}
+    for name, per_step in (("dtw_band", 0), ("dtw_band_step", 1)):
+        for m in (2, 4, 8, 16):
+            got[name, f"M={m}"] = lib.dtw_band_warp_occupancy(
+                (32 * m - 1) // 2, per_step)
+    for g in (1, 2, 4, 8, 16, 32):
+        got["mamba_scan", f"G={g}"] = lib.mamba_scan_occupancy(8 * g)
+    for (name, label), warps in got.items():
+        check(warps > 0, f"{name} {label}: occupancy query failed ({warps})")
+        rep[name]["ptxas"][label]["resident_warps_per_sm"] = warps
+    return rep
 
 
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -483,6 +589,8 @@ def run_sketch_path(torch, dev):
                   "dtw_band", "sketch_bound"):
         check(launches[kname] > 0,
               f"kernel {kname} was not launched on the sketch path")
+    check(launches["dtw_band_block"] == 0, "sketch path: K4 ran its block "
+          "form at w = 51, where k4_form picks the warp form")
     check(torch.equal(res2.idx, res.idx) and torch.equal(res2.dists,
                                                          res.dists),
           "sketch path: a repeated nn_search gave another result")
@@ -599,8 +707,8 @@ def run_long_path(torch, dev):
                   "dtw_band_stream"):
         check(launches[kname] > 0,
               f"kernel {kname} was not launched on the long path")
-    check(launches["dtw_band"] == 0, "long path: K4 ran a band it cannot "
-          "hold")
+    check(launches["dtw_band"] == 0 and launches["dtw_band_block"] == 0,
+          "long path: K4 ran a band it cannot hold (in either form)")
     check(launches["dtw_band_stream_cluster"] == 0
           and launches["dtw_band_stream_scratch"] == 0,
           "long path: K5 ran another form than its rows form (a)")
@@ -1158,20 +1266,24 @@ def band_ops(nb: int) -> int:
 
 
 def kernel_phases(torch, dev, recs, windows, sk_index, sk_queries,
-                  main_idx, main_queries, long_recs):
+                  main_idx, main_queries, long_recs, ptxas):
     """Each kernel against its plain version at the paths' inputs (timed)
     and over a small sweep.  Returns the ``kernels`` records; a kernel's
     ``{main,sketch,long}_path_launches`` are its counts in each path's
-    window (``windows``), ``launches`` their sum."""
+    window (``windows``), ``launches`` their sum (one count per form).
+    ``ptxas`` (``ptxas_report``) adds the redesigned kernels' registers
+    and spills to their records."""
     import torch.nn.functional as F
 
     from repro_torch.core.lower_bounds import _n_bands
     from repro_torch.kernels import ref
-    from repro_torch.kernels.dtw_band import (K5_BLOCK_FLOATS, K5_FORMS,
+    from repro_torch.kernels.dtw_band import (K4_FORMS, K4_WARP_MAX_WB,
+                                              K5_BLOCK_FLOATS, K5_FORMS,
                                               K5_MAX_CLUSTER, K5_ROWS_MAX_L,
                                               STREAM_BLOCKS_PER_SM,
                                               dtw_band_cuda, dtw_band_route,
-                                              k5_cluster_size, k5_form)
+                                              k4_form, k5_cluster_size,
+                                              k5_form)
     from repro_torch.kernels.envelope import envelope_cuda
     from repro_torch.kernels.lb_enhanced import lb_enhanced_cuda
     from repro_torch.kernels.lb_enhanced_pairwise import (
@@ -1362,69 +1474,111 @@ def kernel_phases(torch, dev, recs, windows, sk_index, sk_queries,
         **k3_long))
 
     # ---- K4 banded DTW, K6 its per-step form, K5 its band-streaming form
+    # K4 and K6 in each of their two forms at the main path's largest DTW
+    # launch (the path ran the warp form, which k4_form picks at w = 51),
+    # with the round's cutoffs and without: bit-equal to the plain version
+    # and to each other, and timed on the same card
     a, bb, w4, cut = recs["dtw_band_cuda"].args
     P, L = a.shape
-    k4_cut = dtw_band_cuda(a, bb, w4, cut)
-    err_cut = compare("dtw_band (round cutoffs)", k4_cut,
-                      ref.dtw_band_ref(a, bb, w4, cut), exact=True)
-    k4 = dtw_band_cuda(a, bb, w4)
-    err = compare("dtw_band", k4, ref.dtw_band_ref(a, bb, w4), exact=True)
-    # K6 at the same inputs: bit-equal to its plain version and to K4
-    k6_cut = dtw_band_cuda(a, bb, w4, cut, early_exit=False)
-    err6 = compare("dtw_band_step (round cutoffs)", k6_cut,
-                   ref.dtw_band_ref(a, bb, w4, cut, row_block=1), exact=True)
-    compare("dtw_band_step = K4 (round cutoffs)", k6_cut, k4_cut, exact=True)
-    compare("dtw_band_step = K4", dtw_band_cuda(a, bb, w4, early_exit=False),
-            k4, exact=True)
-    # the sweep: K4, K5 forced and K6, each against the plain version
+    check(k4_form(L, w4) == "warp", f"k4_form({L}, {w4}) is not the warp "
+          "form")
+    plain4_cut = ref.dtw_band_ref(a, bb, w4, cut)
+    plain4, plain4_ms = timed(lambda: ref.dtw_band_ref(a, bb, w4))
+    plain6, plain6_ms = timed(lambda: ref.dtw_band_ref(a, bb, w4,
+                                                       row_block=1))
+    check(torch.equal(plain6, plain4), "the plain K6 and K4 differ")
+    k4e, k4t = {}, {}
+    for form in K4_FORMS:
+        k4_cut = dtw_band_cuda(a, bb, w4, cut, form=form)
+        k4e[form] = max(
+            compare(f"dtw_band {form} (round cutoffs)", k4_cut, plain4_cut,
+                    exact=True),
+            compare(f"dtw_band {form}", dtw_band_cuda(a, bb, w4, form=form),
+                    plain4, exact=True))
+        # K6 at the same inputs: bit-equal to its plain version and to K4
+        k6e = compare(f"dtw_band_step {form} (round cutoffs)",
+                      dtw_band_cuda(a, bb, w4, cut, early_exit=False,
+                                    form=form),
+                      ref.dtw_band_ref(a, bb, w4, cut, row_block=1),
+                      exact=True)
+        k4e["step_" + form] = max(k6e, compare(
+            f"dtw_band_step {form} = K4", dtw_band_cuda(
+                a, bb, w4, early_exit=False, form=form), plain4, exact=True))
+        compare(f"dtw_band_step {form} = K4 (round cutoffs)", dtw_band_cuda(
+            a, bb, w4, cut, early_exit=False, form=form), k4_cut, exact=True)
+    # forms in turns (warp, block, block, warp), the mean of each pair
+    for form in K4_FORMS + K4_FORMS[::-1]:
+        for kind, kw in (("", {}), ("cut_", {"cutoff": cut}),
+                         ("step_", {"early_exit": False})):
+            k4t.setdefault(kind + form, []).append(time_ms(
+                lambda: dtw_band_cuda(a, bb, w4, form=form, **kw), 20))
+    k4t = {key: sum(v) / len(v) for key, v in k4t.items()}
+    # the sweep: K4 in both forms, K5 forced in its three and K6 in both,
+    # each against the plain version; wb = 255 / 256 straddle the warp
+    # form's edge
     for Ps, Ls, ws in [(37, 33, 0), (37, 33, 1), (37, 33, 8), (37, 33, 33),
                        (20, 100, 25), (5, 513, 51), (3, 1, 0), (6, 2, 5),
-                       (4, 700, 700)]:
+                       (4, 700, 700), (9, 64, 31), (9, 66, 32),
+                       (4, 600, K4_WARP_MAX_WB),
+                       (4, 600, K4_WARP_MAX_WB + 1)]:
         xa, xb = randn(Ps, Ls), randn(Ps, Ls)
         exact_d = ref.dtw_band_ref(xa, xb, ws)
         cut_s = exact_d * (0.5 + torch.rand(Ps, generator=gen).to(dev))
         cut_s[::5] = float("-inf")                    # invalid slots
-        for cs in (None, cut_s):
-            want = ref.dtw_band_ref(xa, xb, ws, cs)
-            got4 = dtw_band_cuda(xa, xb, ws, cs)
-            compare(f"dtw_band sweep {(Ps, Ls, ws)}", got4, want, exact=True)
+        wbs = min(ws, max(Ls - 1, 0))
+        forms = K4_FORMS if wbs <= K4_WARP_MAX_WB else ("block",)
+        for cs, rb in ((None, None), (cut_s, None), (cut_s, 7)):
+            want = ref.dtw_band_ref(xa, xb, ws, cs, row_block=rb)
+            for form in forms:
+                compare(f"dtw_band {form} sweep {(Ps, Ls, ws, rb)}",
+                        dtw_band_cuda(xa, xb, ws, cs, row_block=rb,
+                                      form=form), want, exact=True)
             for form in K5_FORMS:
-                compare(f"dtw_band_stream {form} sweep {(Ps, Ls, ws)}",
-                        dtw_band_cuda(xa, xb, ws, cs, stream=True,
-                                      form=form), got4, exact=True)
-            compare(f"dtw_band_step sweep {(Ps, Ls, ws)}",
-                    dtw_band_cuda(xa, xb, ws, cs, early_exit=False),
-                    ref.dtw_band_ref(xa, xb, ws, cs, row_block=1),
+                compare(f"dtw_band_stream {form} sweep {(Ps, Ls, ws, rb)}",
+                        dtw_band_cuda(xa, xb, ws, cs, row_block=rb,
+                                      stream=True, form=form), want,
+                        exact=True)
+        for form in forms:
+            compare(f"dtw_band_step {form} sweep {(Ps, Ls, ws)}",
+                    dtw_band_cuda(xa, xb, ws, cut_s, early_exit=False,
+                                  form=form),
+                    ref.dtw_band_ref(xa, xb, ws, cut_s, row_block=1),
                     exact=True)
     bms, by = bound(8.0 * P * L + 8.0 * P, 5.0 * band_cells(L, w4) * P)
-    k4_ms = time_ms(lambda: dtw_band_cuda(a, bb, w4), 20)
-    k4_cut_ms = time_ms(lambda: dtw_band_cuda(a, bb, w4, cut), 20)
-    out.append(dict(
-        name="dtw_band", route="cuda", source="src/repro_torch/csrc/dtw_band.cu",
-        replaces="src/repro/kernels/dtw_band.py:323",
-        **path_launches("dtw_band"), max_abs_err=max(err, err_cut),
-        ms=k4_ms,
-        plain_ms=time_ms(lambda: ref.dtw_band_ref(a, bb, w4), 2, warmup=1),
-        bound_ms=bms, bound_by=by, library_ms=None,
-        shape=f"P={P} L={L} w={w4} no cutoff",
-        round_cutoffs_ms=k4_cut_ms))
     # K6: K4's 5 operations per band cell plus the per-step frontier test,
     # one min per cell (each cell's minimum is taken once and carried to
     # the next step's min(S_d, S_{d-1}))
-    bms, by = bound(8.0 * P * L + 8.0 * P, 6.0 * band_cells(L, w4) * P)
-    out.append(dict(
-        name="dtw_band_step", route="cuda",
-        source="src/repro_torch/csrc/dtw_band.cu",
-        replaces="src/repro/kernels/dtw_band.py:121",
-        **path_launches("dtw_band_step"), max_abs_err=err6,
-        ms=time_ms(lambda: dtw_band_cuda(a, bb, w4, early_exit=False), 20),
-        plain_ms=time_ms(lambda: ref.dtw_band_ref(a, bb, w4, row_block=1),
-                         1, warmup=1),
-        bound_ms=bms, bound_by=by, library_ms=None,
-        shape=f"P={P} L={L} w={w4} no cutoff (the main path's K4 input)",
-        round_cutoffs_ms=time_ms(
-            lambda: dtw_band_cuda(a, bb, w4, cut, early_exit=False), 20),
-        k4_ms=k4_ms, k4_round_cutoffs_ms=k4_cut_ms))
+    bms6, by6 = bound(8.0 * P * L + 8.0 * P, 6.0 * band_cells(L, w4) * P)
+    shape4 = f"P={P} L={L} w={w4} no cutoff (the main path's K4 input)"
+    forms4 = {
+        "warp": "warp: one warp a pair, lane l holding band slots "
+                f"[l M, l M + M) in registers (M = "
+                f"{next(m for m in (2, 4, 8, 16) if 32 * m > 2 * w4)} "
+                "here), one shuffle a step, no block barrier",
+        "block": "block: one block a pair, the two band buffers in shared "
+                 "memory, a __syncthreads a step (forced here; k4_form "
+                 f"picks it past wb = {K4_WARP_MAX_WB})",
+    }
+    for form in K4_FORMS:
+        sfx = "" if form == "warp" else "_block"
+        out.append(dict(
+            name="dtw_band" + sfx, route="cuda",
+            source="src/repro_torch/csrc/dtw_band.cu",
+            replaces="src/repro/kernels/dtw_band.py:323",
+            **path_launches("dtw_band" + sfx), max_abs_err=k4e[form],
+            ms=k4t[form], plain_ms=plain4_ms, bound_ms=bms, bound_by=by,
+            library_ms=None, form=forms4[form], shape=shape4,
+            round_cutoffs_ms=k4t["cut_" + form],
+            **ptxas.get("dtw_band" + sfx, {})))
+        out.append(dict(
+            name="dtw_band_step" + sfx, route="cuda",
+            source="src/repro_torch/csrc/dtw_band.cu",
+            replaces="src/repro/kernels/dtw_band.py:121",
+            **path_launches("dtw_band_step" + sfx),
+            max_abs_err=k4e["step_" + form], ms=k4t["step_" + form],
+            plain_ms=plain6_ms, bound_ms=bms6, bound_by=by6,
+            library_ms=None, form=forms4[form], shape=shape4,
+            k4_ms=k4t[form], **ptxas.get("dtw_band_step" + sfx, {})))
 
     # K5 in its three forms.  (a) "rows" on the long path's largest round
     # (the form the path ran) with its own cutoffs and with none, pairs of
@@ -1656,13 +1810,15 @@ def kernel_phases(torch, dev, recs, windows, sk_index, sk_queries,
     return out
 
 
-def lm_kernel_phases(torch, dev, windows, lm_recs):
+def lm_kernel_phases(torch, dev, windows, lm_recs, ptxas):
     """K9 and K10 against their plain versions at the LM phase's recorded
-    inputs (timed) and over their sweeps.  Returns their ``kernels``
-    records; ``launches`` sums the LM requests' windows."""
+    inputs (timed) and over their sweeps; K9 also at the shapes its
+    wrapper repairs (g > 64, bf16 head dims not a multiple of 8, bf16
+    storage not 16-byte aligned).  Returns their ``kernels`` records;
+    ``launches`` sums the LM requests' windows."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import _build, ref
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.mamba_scan import mamba_scan_cuda
 
@@ -1709,6 +1865,33 @@ def lm_kernel_phases(torch, dev, windows, lm_recs):
             err_sweep[dts] = max(err_sweep[dts], r["max_abs_err"])
             if dts == "bfloat16":
                 rel_sweep = max(rel_sweep, r["rel_rms_err"])
+    # what the wrapper repairs: g = 96 (two launches of 48 heads of each
+    # group, f32 and bf16), bf16 D = 100 (padded to 104), bf16 storage
+    # 2 bytes past alignment (an aligned copy)
+    repaired = {}
+    for label, (Hq, Hkv, D, dts, skew) in {
+            "g96_f32": (192, 2, 64, "float32", False),
+            "g96_bf16": (192, 2, 64, "bfloat16", False),
+            "d100_bf16": (8, 4, 100, "bfloat16", False),
+            "unaligned_bf16": (8, 4, 128, "bfloat16", True)}.items():
+        xs = []
+        for H in (Hq, Hkv, Hkv):
+            n = 2 * 77 * H * D
+            flat = randn(n + 1).to(getattr(torch, dts))
+            xs.append((flat[1:] if skew else flat[:n]).view(2, 77, H, D))
+        check(all(bool(x.data_ptr() % 16) == skew for x in xs),
+              f"K9 repaired shape {label}: alignment not as intended")
+        _build.reset_counts()
+        got9 = flash_attention_cuda(*xs, True, 32, 50.0)
+        name9 = "flash_attention_f32" if dts == "float32" else \
+            "flash_attention"
+        check(_build.counts()[name9] == (2 if Hq // Hkv > 64 else 1),
+              f"K9 repaired shape {label}: {_build.counts()[name9]} "
+              f"launches of {name9}")
+        r = k9_compare(f"flash_attention repaired {label}", got9,
+                       ref.flash_attention_ref(*xs, True, 32, 50.0))
+        repaired[label] = r["max_abs_err"] if dts == "float32" else \
+            r["rel_rms_err"]
 
     def k9_bound(q, k, causal, window):
         B9, Sq9, Hq9, D9 = q.shape
@@ -1769,7 +1952,10 @@ def lm_kernel_phases(torch, dev, windows, lm_recs):
         sweep_max_abs_err_bf16=err_sweep["bfloat16"],
         sweep_max_rel_rms_err_bf16=rel_sweep,
         form="bf16: tensor cores (wgmma), K/V by TMA", tol=K9_TOL,
-        bf16_rel_rms_tol=K9_BF16_REL_RMS))
+        bf16_rel_rms_tol=K9_BF16_REL_RMS,
+        repaired_shapes_err={k: v for k, v in repaired.items()
+                             if k.endswith("bf16")},
+        repaired_shapes_err_kind="bf16: relative RMS error"))
     # K9's f32 form (CUDA cores) at the global layer's inputs in f32: the
     # f32 checks of the LM phase run it
     qf, kf, vf = (x.float() for x in (qg, kg, vg))
@@ -1793,7 +1979,7 @@ def lm_kernel_phases(torch, dev, windows, lm_recs):
                                                          wg9, capg), 2,
                          warmup=1),
         bound_ms=bms32, bound_by=by32, library_ms=None,
-        form="f32: CUDA cores",
+        form="f32: CUDA cores", repaired_g96_max_abs_err=repaired["g96_f32"],
         shape=f"the global layer's inputs in f32, cap={capg}",
         bound_peak="FP32 non-tensor 67 TFLOP/s, HBM 3.35 TB/s"))
     del qf, kf, vf
@@ -1803,24 +1989,24 @@ def lm_kernel_phases(torch, dev, windows, lm_recs):
     delta = args[0]
     Bs, S, C = delta.shape
     N = args[2].shape[1]
-    y, h = mamba_scan_cuda(*args)
-    ry, rh = ref.mamba_scan_ref(*args)
-    err = compare("mamba_scan (path)", (y, h), (ry, rh), exact=False)
-    bit_equal = bool(torch.equal(y, ry) and torch.equal(h, rh))
-    sweep_bit_equal = True
+    err = compare("mamba_scan (path)", mamba_scan_cuda(*args),
+                  ref.mamba_scan_ref(*args), exact=True)
     for (Bs_, S_, C_, N_) in MAMBA_SWEEP:
         sw = (torch.rand(Bs_, S_, C_, generator=gen).to(dev) * 0.1,
               randn(Bs_, S_, C_),
               -torch.rand(C_, N_, generator=gen).to(dev) * 3,
               randn(Bs_, S_, N_), randn(Bs_, S_, N_), randn(Bs_, C_, N_))
-        got, want = mamba_scan_cuda(*sw), ref.mamba_scan_ref(*sw)
-        compare(f"mamba_scan sweep {(Bs_, S_, C_, N_)}", got, want,
-                exact=False)
-        sweep_bit_equal &= all(torch.equal(g, w) for g, w in zip(got, want))
+        compare(f"mamba_scan sweep {(Bs_, S_, C_, N_)}", mamba_scan_cuda(*sw),
+                ref.mamba_scan_ref(*sw), exact=True)
     # inputs and outputs once: delta, u, B, C rows, y; A, h0, hT
     bms, by = bound(4.0 * (Bs * S * (2 * C + 2 * N) + Bs * S * C + C * N
                            + 2 * Bs * C * N),
                     7.0 * Bs * S * C * N + Bs * S * C)
+    # the SFU's share: one ex2 per (b, t, c, n) at 16 a clock per SM, at
+    # the card's maximum SM clock (not counted in the bound)
+    props = torch.cuda.get_device_properties(dev)
+    sfu_ms = Bs * S * C * N / (props.multi_processor_count * 16
+                               * max_sm_clock_hz()) * 1e3
     out.append(dict(
         name="mamba_scan", route="cuda",
         source="src/repro_torch/csrc/mamba_scan.cu",
@@ -1829,9 +2015,14 @@ def lm_kernel_phases(torch, dev, windows, lm_recs):
         ms=time_ms(lambda: mamba_scan_cuda(*args), 10),
         plain_ms=time_ms(lambda: ref.mamba_scan_ref(*args), 2, warmup=1),
         bound_ms=bms, bound_by=by, library_ms=None,
+        sfu_floor_ms=sfu_ms,
+        form="states across lanes: a group of G lanes a channel, 8 states "
+             "a lane, the running sum passed down the skewed group by a "
+             "shuffle, chunks copied in by cp.async",
         shape=f"B={Bs} S={S} C={C} N={N} f32 (a layer of the falcon "
-              f"prefill)", bit_equal_to_plain=bit_equal,
-        sweep_bit_equal_to_plain=sweep_bit_equal))
+              f"prefill)", bit_equal_to_plain=True,
+        sweep_states=sorted({sw[3] for sw in MAMBA_SWEEP}),
+        **ptxas.get("mamba_scan", {})))
     return out
 
 
@@ -1859,19 +2050,28 @@ def main() -> int:
               f"{torch.version.cuda})")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        import tempfile
+
         from repro_torch.kernels import _build
 
         t0 = time.perf_counter()
-        lib_path = _build.build()
-        _build.library()
+        with tempfile.TemporaryDirectory() as tmp:
+            procs = ptxas_start(Path(tmp))
+            lib_path = _build.build()
+            _build.library()
+            ptxas = ptxas_report(procs)
         print(f"kernels built in {time.perf_counter() - t0:.1f} s: "
               f"{lib_path.name}")
+        ptxas = occupancy_report(ptxas)
+        print("ptxas: " + json.dumps(ptxas))
         dev = torch.device("cuda:0")
         ds, index, cfg, res, launches, recs = run_main_path(torch, dev)
         for kname in ("envelope", "lb_enhanced", "lb_enhanced_pairwise",
                       "dtw_band"):
             check(launches[kname] > 0,
                   f"kernel {kname} was not launched on the main path")
+        check(launches["dtw_band_block"] == 0, "main path: K4 ran its block "
+              "form at w = 51, where k4_form picks the warp form")
         check_search(torch, ds, index, cfg, res)
         sk_ds, sk_index, sk_cfg, sk_launches = run_sketch_path(torch, dev)
         guard_phase(torch, ds, index, cfg, dev)
@@ -1885,14 +2085,16 @@ def main() -> int:
         windows = {"main": launches, "sketch": sk_launches,
                    "long": lg_launches}
         kernels = kernel_phases(torch, dev, recs, windows, sk_index,
-                                sk_ds.x_test, index, ds.x_test, lg_recs)
+                                sk_ds.x_test, index, ds.x_test, lg_recs,
+                                ptxas)
         # the LM phase needs the card's memory: falcon-mamba-7b's f32
         # weights and bf16 copy are 43.6 GB
         del ds, index, res, recs, sk_ds, sk_index, lg_ds, lg_index, lg_recs
         gc.collect()
         torch.cuda.empty_cache()
         lm_windows, lm_recs = run_lm_phase(torch, dev, profile)
-        kernels += lm_kernel_phases(torch, dev, lm_windows, lm_recs)
+        kernels += lm_kernel_phases(torch, dev, lm_windows, lm_recs,
+                                    ptxas)
         del lm_recs
         torch.cuda.synchronize()
     except SmokeFailure as e:

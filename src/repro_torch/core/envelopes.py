@@ -51,3 +51,17 @@ def envelope(b: Tensor, w: int) -> tuple[Tensor, Tensor]:
     u = sliding_reduce(bu, k, torch.maximum, -_INF)[..., :L]
     lo = sliding_reduce(bl, k, torch.minimum, _INF)[..., :L]
     return u.contiguous(), lo.contiguous()
+
+
+def envelope_naive(b: Tensor, w: int) -> tuple[Tensor, Tensor]:
+    """O(L w) envelopes by explicit window gathers, an oracle for
+    ``envelope``: the window of position i is ``[i - w, i + w]`` clipped
+    to the series."""
+    L = b.shape[-1]
+    idx = (torch.arange(L, device=b.device)[:, None]
+           + torch.arange(-w, w + 1, device=b.device)[None, :])
+    valid = (idx >= 0) & (idx < L)
+    vals = b[..., idx.clamp(0, L - 1)]                   # (..., L, 2w+1)
+    u = torch.where(valid, vals, -_INF).amax(dim=-1)
+    lo = torch.where(valid, vals, _INF).amin(dim=-1)
+    return u, lo

@@ -1,4 +1,5 @@
-// The banded-DTW kernel body of K4 and K6 (csrc/dtw_band.cu) and K5
+// The banded-DTW kernel body of K4's and K6's block form
+// (csrc/dtw_band.cu, for 255 < wb <= 14463) and of K5's scratch form
 // (csrc/dtw_band_stream.cu): (P, L) x (P, L) -> (P,) with a per-pair
 // cutoff.  Its recurrence is src/repro/core/dtw.py:band_step over the
 // band-packed state, diagonal offsets k in [0, 2wb]:
@@ -11,9 +12,10 @@
 // anti-diagonals.  The series are read straight from device memory.
 //
 // STREAM says where the two band buffers live: in dynamic shared memory
-// (K4, K6; the wrapper launches one block per pair) or in a device-memory
-// scratch of (grid, 2, 2wb + 1) floats (K5; a persistent grid whose
-// blocks loop over pairs), for bands too wide for a block's shared memory.
+// (K4's and K6's block form; the wrapper launches one block per pair) or
+// in a device-memory scratch of (grid, 2, 2wb + 1) floats (K5; a
+// persistent grid whose blocks loop over pairs), for bands too wide for a
+// block's shared memory.
 // The block that writes the scratch reads it back after a __syncthreads,
 // through plain loads (never __ldg or a const __restrict__ pointer, whose
 // non-coherent path could serve stale lines).

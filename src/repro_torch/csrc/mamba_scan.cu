@@ -7,109 +7,226 @@
 // (_mamba_scan_kernel).  Bound on this card: bytes -- the kernel's inputs
 // and outputs once, B S (2C + 2N) 4 + B S C 4 (+ A, h0, hT): ~0.8 GB at
 // falcon-mamba-7b's B = 4, S = 2048, C = 8192, N = 16, ~0.24 ms, against
-// ~7 FP32 operations per (b, t, c, n), ~0.11 ms.  Design: one thread per
-// (batch row, channel) keeps h[N] and A[c, :] in registers for the whole
-// sequence -- the Hopper analogue of the Pallas kernel's VMEM carry across
-// its sequential sequence-grid axis.  Blocks tile the channels of one
-// batch row; each chunk of MS_TS time steps stages that row's B and C
-// rows (shared by every channel) and the block's delta and u columns
-// (read coalesced across channels, all loads of the chunk in flight
-// together) in shared memory.  y is written every step (coalesced across
-// channels), hT at the end.  Ragged S and C are bounds checks.  N up to
-// 64 (registers); the wrapper refuses more.
+// ~7 FP32 operations per (b, t, c, n), ~0.11 ms.  The B S C N expf calls
+// also pass the SFU (16 a clock per SM), ~0.29 ms there: a floor the
+// bound does not count.
 //
-// The state update is unfused in the plain version's order,
-// (exp(d A) * h) + ((d * u) * B), and the N-sum runs n = 0 .. N-1 as
-// acc + h_n C_n, as the plain version (kernels/ref.py:mamba_scan_ref)
-// sums it, so the two agree bit for bit where their expf agree.
+// Design: states across lanes.  A (batch row, channel) pair is a group of
+// G lanes (G = 2 at N = 16, so 16 channels a warp); lane k of the group
+// holds the 8 consecutive states n in [8 k, 8 k + 8) and their A[c, n] in
+// registers for the whole sequence -- the Hopper analogue of the Pallas
+// kernel's VMEM carry across its sequential sequence-grid axis, spread so
+// that B C G threads carry it instead of B C.  G = ceil(N / 8) rounded up
+// to a power of two, at most 32: N <= 256.
+//
+// The N-sum keeps the plain version's order, n = 0 .. N-1 as
+// acc + h_n C_n, each product and sum rounded on its own
+// (kernels/ref.py:mamba_scan_ref), by passing the running sum down the
+// group: lane k adds its 8 products to the sum lane k - 1 made of the
+// states before its own.  The group is skewed by one step a lane -- at
+// iteration s lane k runs step t = s - k -- so the sum of step t that lane
+// k - 1 made at iteration s - 1 arrives by one __shfl_up_sync at iteration
+// s, and every lane works at once; lane G - 1 writes y[t] (16 consecutive
+// channels of a warp at N = 16: 64 bytes).  A step costs a lane one
+// shuffle, against a shared-memory transpose's store and load per product.
+//
+// A block of MS_WARPS warps holds CHB = 32 MS_WARPS / G channels of one
+// batch row.  Each chunk of T iterations needs the steps its lanes reach
+// (T + G - 1, the skew's halo included) of the block's delta and u columns
+// and of the row's B and C rows (shared by every channel): they are copied
+// to shared memory by cp.async, the next chunk's while this one runs (two
+// buffers), so no warp waits on device memory between chunks.  Lane k
+// reads its step's delta and u (a row stride of G mod 32 words keeps the
+// warp's 32 reads on 32 banks) and its 8 B and C values with 16-byte
+// loads (G addresses a warp, broadcast).  The state update is unfused in
+// the plain version's order, (exp(d A) * h) + ((d * u) * B), so the two
+// agree bit for bit where their expf agree.  Ragged S and C are copies of
+// 0 bytes (cp.async fills zeros); states past N see zero A, B and C, and
+// add +0 to a sum that is never -0.
 #include "common.cuh"
 
-#define MS_TC 128          // channels per block (one thread each)
-#define MS_TS 16           // time steps per staged chunk
+#define MS_WARPS 8                 // warps per block
+#define MS_NS 8                    // states a lane
 
-template <int NMAX>
-__global__ void __launch_bounds__(MS_TC)
+template <int G>
+struct MsGeom {
+    static constexpr int T = G == 32 ? 16 : 32;         // iterations a chunk
+    static constexpr int CHB = 32 / G * MS_WARPS;       // channels a block
+    static constexpr int TT = T + G - 1;                // staged steps
+    static constexpr int DSTR = G == 32 ? 64 : 32 + G;  // >= TT, = G mod 32
+    static constexpr int NP = G * MS_NS;                // states a group
+    // one buffer: delta and u [CHB][DSTR], B and C [TT][NP]
+    static constexpr int BUF = 2 * CHB * DSTR + 2 * TT * NP;
+    static constexpr int BYTES = 2 * BUF * 4;
+};
+
+// 4 bytes global -> shared, asynchronously; !ok copies 0 bytes and fills
+// the word with zeros
+__device__ __forceinline__ void ms_copy(float* dst, const float* src,
+                                        bool ok) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(d), "l"(src), "r"(ok ? 4 : 0));
+}
+
+template <int G>
+__global__ void __launch_bounds__(32 * MS_WARPS)
 mamba_scan_kernel(const float* __restrict__ delta, const float* __restrict__ u,
                   const float* __restrict__ A, const float* __restrict__ Bm,
                   const float* __restrict__ Cm, const float* __restrict__ h0,
                   float* __restrict__ y, float* __restrict__ hT, int S, int C,
                   int N) {
-    __shared__ float d_sh[MS_TS][MS_TC];
-    __shared__ float u_sh[MS_TS][MS_TC];
-    __shared__ float b_sh[MS_TS][NMAX];
-    __shared__ float c_sh[MS_TS][NMAX];
+    using Geo = MsGeom<G>;
+    constexpr int T = Geo::T, CHB = Geo::CHB, TT = Geo::TT;
+    constexpr int DSTR = Geo::DSTR, NP = Geo::NP, NS = MS_NS;
+    extern __shared__ float4 sm4[];
+    float* sm = reinterpret_cast<float*>(sm4);
     const int tid = threadIdx.x;
+    const int k = tid % G;                          // the lane's place
+    const int cl = tid / G;                         // the group's channel
     const int b = blockIdx.y;
-    const int c = blockIdx.x * MS_TC + tid;
+    const int c0 = blockIdx.x * CHB;
+    const int c = c0 + cl;
     const bool live = c < C;
-    float a[NMAX], h[NMAX];
+    const int n0 = k * NS;
+    // the steps [s0 - G + 1, s0 + T) of chunk s0 into buffer buf
+    auto stage = [&](int s0, int buf) {
+        const int tb = s0 - (G - 1);
+        float* d_sh = sm + buf * Geo::BUF;
+        float* u_sh = d_sh + CHB * DSTR;
+        float* b_sh = u_sh + CHB * DSTR;
+        float* c_sh = b_sh + TT * NP;
+        for (int e = tid; e < TT * CHB; e += 32 * MS_WARPS) {
+            const int ch = e % CHB, r = e / CHB, t = tb + r;
+            const bool ok = t >= 0 && t < S && c0 + ch < C;
+            const size_t off = ok ? ((size_t)b * S + t) * C + c0 + ch : 0;
+            ms_copy(d_sh + ch * DSTR + r, delta + off, ok);
+            ms_copy(u_sh + ch * DSTR + r, u + off, ok);
+        }
+        for (int e = tid; e < TT * NP; e += 32 * MS_WARPS) {
+            const int n = e % NP, r = e / NP, t = tb + r;
+            const bool ok = t >= 0 && t < S && n < N;
+            const size_t off = ok ? ((size_t)b * S + t) * N + n : 0;
+            ms_copy(b_sh + r * NP + n, Bm + off, ok);
+            ms_copy(c_sh + r * NP + n, Cm + off, ok);
+        }
+        asm volatile("cp.async.commit_group;\n" ::);
+    };
+    float a[NS], h[NS];
 #pragma unroll
-    for (int n = 0; n < NMAX; ++n) {
-        const bool in = live && n < N;
-        a[n] = in ? A[(size_t)c * N + n] : 0.f;
-        h[n] = in ? h0[((size_t)b * C + c) * N + n] : 0.f;
+    for (int j = 0; j < NS; ++j) {
+        const bool in = live && n0 + j < N;
+        a[j] = in ? A[(size_t)c * N + n0 + j] : 0.f;
+        h[j] = in ? h0[((size_t)b * C + c) * N + n0 + j] : 0.f;
     }
-    for (int t0 = 0; t0 < S; t0 += MS_TS) {
-        const int nt = min(MS_TS, S - t0);
-        __syncthreads();                // the last chunk has been read
-        for (int t = 0; t < nt; ++t) {
-            const size_t off = ((size_t)b * S + t0 + t) * C + c;
-            d_sh[t][tid] = live ? delta[off] : 0.f;
-            u_sh[t][tid] = live ? u[off] : 0.f;
-        }
-        for (int e = tid; e < nt * N; e += MS_TC) {
-            const int t = e / N, n = e % N;
-            const size_t off = ((size_t)b * S + t0 + t) * N + n;
-            b_sh[t][n] = Bm[off];
-            c_sh[t][n] = Cm[off];
-        }
+    float acc = 0.f;
+    const int iters = S + G - 1;
+    stage(0, 0);
+    int buf = 0;
+    for (int s0 = 0; s0 < iters; s0 += T, buf ^= 1) {
+        __syncthreads();                // the other buffer's chunk is read
+        if (s0 + T < iters)
+            stage(s0 + T, buf ^ 1);
+        else
+            asm volatile("cp.async.commit_group;\n" ::);  // an empty group
+        asm volatile("cp.async.wait_group 1;\n" ::);      // this chunk's
         __syncthreads();
-        for (int t = 0; t < nt; ++t) {
-            const float dt = d_sh[t][tid];
-            const float du = __fmul_rn(dt, u_sh[t][tid]);
-            float acc = 0.f;
+        const float* d_sh = sm + buf * Geo::BUF;
+        const float* u_sh = d_sh + CHB * DSTR;
+        const float* b_sh = u_sh + CHB * DSTR;
+        const float* c_sh = b_sh + TT * NP;
+        const int ns = min(T, iters - s0);
+#pragma unroll 4
+        for (int i = 0; i < ns; ++i) {
+            // the sum of this lane's step from lane k - 1 (its last
+            // iteration); lane 0 starts each step's sum at 0
+            const float prev = __shfl_up_sync(0xffffffffu, acc, 1, G);
+            acc = k == 0 ? 0.f : prev;
+            const int t = s0 + i - k;
+            if (t >= 0 && t < S) {
+                const int r = i + G - 1 - k;        // the tile row of step t
+                const float dt = d_sh[cl * DSTR + r];
+                const float du = __fmul_rn(dt, u_sh[cl * DSTR + r]);
+                const float* br = b_sh + r * NP + n0;
+                const float* cr = c_sh + r * NP + n0;
 #pragma unroll
-            for (int n = 0; n < NMAX; ++n) {
-                if (n < N) {
-                    const float an = expf(__fmul_rn(dt, a[n]));
-                    h[n] = __fadd_rn(__fmul_rn(an, h[n]),
-                                     __fmul_rn(du, b_sh[t][n]));
-                    acc = __fadd_rn(acc, __fmul_rn(h[n], c_sh[t][n]));
+                for (int j4 = 0; j4 < NS; j4 += 4) {
+                    const float4 bv = *reinterpret_cast<const float4*>(br + j4);
+                    const float4 cv = *reinterpret_cast<const float4*>(cr + j4);
+                    const float bb[4] = {bv.x, bv.y, bv.z, bv.w};
+                    const float cc[4] = {cv.x, cv.y, cv.z, cv.w};
+#pragma unroll
+                    for (int jj = 0; jj < 4; ++jj) {
+                        const int j = j4 + jj;
+                        const float an = expf(__fmul_rn(dt, a[j]));
+                        h[j] = __fadd_rn(__fmul_rn(an, h[j]),
+                                         __fmul_rn(du, bb[jj]));
+                        acc = __fadd_rn(acc, __fmul_rn(h[j], cc[jj]));
+                    }
                 }
+                if (k == G - 1 && live) y[((size_t)b * S + t) * C + c] = acc;
             }
-            if (live) y[((size_t)b * S + t0 + t) * C + c] = acc;
         }
     }
+    asm volatile("cp.async.wait_group 0;\n" ::);
     if (!live) return;
 #pragma unroll
-    for (int n = 0; n < NMAX; ++n)
-        if (n < N) hT[((size_t)b * C + c) * N + n] = h[n];
+    for (int j = 0; j < NS; ++j)
+        if (n0 + j < N) hT[((size_t)b * C + c) * N + n0 + j] = h[j];
 }
 
-template <int NMAX>
+template <int G>
 static int mamba_launch_t(const float* delta, const float* u, const float* A,
                           const float* Bm, const float* Cm, const float* h0,
                           float* y, float* hT, int B, int S, int C, int N,
                           cudaStream_t stream) {
-    dim3 grid((C + MS_TC - 1) / MS_TC, B);
-    mamba_scan_kernel<NMAX><<<grid, MS_TC, 0, stream>>>(delta, u, A, Bm, Cm,
-                                                        h0, y, hT, S, C, N);
+    using Geo = MsGeom<G>;
+    cudaError_t e = cudaFuncSetAttribute(
+        mamba_scan_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        Geo::BYTES);
+    if (e != cudaSuccess) return (int)e;
+    dim3 grid((C + Geo::CHB - 1) / Geo::CHB, B);
+    mamba_scan_kernel<G><<<grid, 32 * MS_WARPS, Geo::BYTES, stream>>>(
+        delta, u, A, Bm, Cm, h0, y, hT, S, C, N);
     return (int)cudaGetLastError();
 }
 
-// The wrapper (kernels/mamba_scan.py) has checked 1 <= N <= 64.
+#define MS_DISPATCH(F, ...)                                                 \
+    (N <= 8     ? F<1>(__VA_ARGS__)                                         \
+     : N <= 16  ? F<2>(__VA_ARGS__)                                         \
+     : N <= 32  ? F<4>(__VA_ARGS__)                                         \
+     : N <= 64  ? F<8>(__VA_ARGS__)                                         \
+     : N <= 128 ? F<16>(__VA_ARGS__)                                        \
+                : F<32>(__VA_ARGS__))
+
+// The wrapper (kernels/mamba_scan.py) has checked 1 <= N <= 256: groups
+// of G = N / 8 lanes, rounded up to a power of two, at most 32.
 extern "C" int mamba_scan_launch(const float* delta, const float* u,
                                  const float* A, const float* Bm,
                                  const float* Cm, const float* h0, float* y,
                                  float* hT, int B, int S, int C, int N,
                                  void* stream) {
-    cudaStream_t s = (cudaStream_t)stream;
-    if (N <= 16)
-        return mamba_launch_t<16>(delta, u, A, Bm, Cm, h0, y, hT, B, S, C,
-                                  N, s);
-    if (N <= 32)
-        return mamba_launch_t<32>(delta, u, A, Bm, Cm, h0, y, hT, B, S, C,
-                                  N, s);
-    return mamba_launch_t<64>(delta, u, A, Bm, Cm, h0, y, hT, B, S, C, N,
-                              s);
+    if (N < 1 || N > 256) return (int)cudaErrorInvalidValue;
+    return MS_DISPATCH(mamba_launch_t, delta, u, A, Bm, Cm, h0, y, hT, B, S,
+                       C, N, (cudaStream_t)stream);
+}
+
+template <int G>
+static int mamba_occupancy_t() {
+    const int smem = MsGeom<G>::BYTES;
+    int n = 0;
+    cudaError_t e = cudaFuncSetAttribute(
+        mamba_scan_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &n, mamba_scan_kernel<G>, 32 * MS_WARPS, smem);
+    return e == cudaSuccess ? n * MS_WARPS : -(int)e;
+}
+
+// Resident warps per SM for N states, or minus a CUDA error: a reading for
+// the measurement script, which no launch uses.
+extern "C" int mamba_scan_occupancy(int N) {
+    if (N < 1 || N > 256) return -(int)cudaErrorInvalidValue;
+    return MS_DISPATCH(mamba_occupancy_t, );
 }

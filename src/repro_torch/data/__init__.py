@@ -1,3 +1,3 @@
-from repro_torch.data.synthetic import Dataset, make_dataset
+from repro_torch.data.synthetic import Dataset, make_dataset, random_pairs
 
-__all__ = ["Dataset", "make_dataset"]
+__all__ = ["Dataset", "make_dataset", "random_pairs"]

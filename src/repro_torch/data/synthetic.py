@@ -1,9 +1,9 @@
 """Synthetic UCR-like time-series classification data (numpy only).
 
-The port keeps its own copy of ``repro.data.synthetic.make_dataset`` so
-that it never imports the JAX package; the same seed gives the same arrays
-in both.  Datasets have the statistical character the UCR archive
-stresses: per-class smooth prototypes,
+The port keeps its own copy of ``repro.data.synthetic.make_dataset`` and
+``random_pairs`` so that it never imports the JAX package; the same seed
+gives the same arrays in both.  Datasets have the statistical character
+the UCR archive stresses: per-class smooth prototypes,
 instances that are *time-warped* copies (random monotone warp maps) with
 additive noise and amplitude jitter, z-normalised (UCR convention).  Warping
 is what makes DTW the right distance, and window size the knob — matching
@@ -97,3 +97,14 @@ def make_dataset(
         x_test=np.asarray(xs_te, np.float32),
         y_test=np.asarray(ys_te, np.int32),
     )
+
+
+def random_pairs(n_pairs: int, length: int, *,
+                 seed: int = 0) -> tuple[np.ndarray, np.ndarray]:
+    """Random z-normalised random-walk pairs ``(n_pairs, length)`` x 2,
+    float32 (the paper's Fig. 1 protocol); the same seed gives the same
+    arrays as ``repro.data.synthetic.random_pairs``."""
+    rng = np.random.default_rng(seed)
+    a = np.cumsum(rng.normal(size=(n_pairs, length)), axis=1)
+    b = np.cumsum(rng.normal(size=(n_pairs, length)), axis=1)
+    return _znorm(a).astype(np.float32), _znorm(b).astype(np.float32)

@@ -1,14 +1,19 @@
-"""Banded-DTW wrappers on the card: K4 and K6 (csrc/dtw_band.cu) and K5
-(csrc/dtw_band_stream.cu, three forms), one entry point,
+"""Banded-DTW wrappers on the card: K4 and K6 (csrc/dtw_band.cu, two
+forms) and K5 (csrc/dtw_band_stream.cu, three forms), one entry point,
 ``dtw_band_cuda``.
 
 - K4 replaces ``src/repro/kernels/dtw_band.py:dtw_band_pallas``
-  (``_dtw_band_kernel_blocked``): one block per pair, threads over the
-  valid cells of each anti-diagonal, the two previous anti-diagonals in
-  shared memory, a block-wide frontier minimum at each ``row_block_policy``
-  boundary; a dead pair writes ``+inf`` and its block exits.
-- K6 replaces ``_dtw_band_kernel`` (``early_exit=False``): the same
-  kernel with the frontier tested at every anti-diagonal, dead state
+  (``_dtw_band_kernel_blocked``), with a frontier minimum at each
+  ``row_block_policy`` boundary; a dead pair writes ``+inf`` and stops.
+  ``k4_form(L, w)`` picks one of two forms: ``"warp"`` (wb <= 255, the
+  search paths' w = 51), one warp per pair, lane l holding the band slots
+  ``[l M, l M + M)`` in registers (M in {2, 4, 8, 16}), one warp shuffle
+  a step for the neighbour outside the lane and none of the block's
+  barriers; ``"block"``, one block per pair, threads over the valid cells
+  of each anti-diagonal, the two previous anti-diagonals in shared memory
+  and a ``__syncthreads`` a step.
+- K6 replaces ``_dtw_band_kernel`` (``early_exit=False``): the same two
+  forms with the frontier tested at every anti-diagonal, dead state
   poisoned to ``+inf`` and no early return.  Equal outputs; a baseline.
 - K5 replaces ``_dtw_band_pallas_stream``, for bands whose two buffers
   do not fit a block's shared memory.  ``k5_form(L, w)`` picks one of
@@ -22,9 +27,12 @@
   ``(grid, 2, 2 wb + 1)`` floats allocated here, a persistent grid of
   blocks looping over pairs.
 
-K4, K6 and form ``"scratch"`` share one kernel body
-(``csrc/dtw_band.cuh``); the two on-chip forms have their own.  Bound on
-this card: FP32 operations, 5 per band cell over ``L(2w+1) - w(w+1)``
+K4's and K6's block form and K5's form ``"scratch"`` share one kernel
+body (``csrc/dtw_band.cuh``); the others have their own.  Each form has
+its own launch count: ``dtw_band`` and ``dtw_band_block`` (K4),
+``dtw_band_step`` and ``dtw_band_step_block`` (K6), ``dtw_band_stream``,
+``dtw_band_stream_cluster`` and ``dtw_band_stream_scratch`` (K5).  Bound
+on this card: FP32 operations, 5 per band cell over ``L(2w+1) - w(w+1)``
 cells per pair (6 for K6), against 8 L bytes per pair.
 ``dtw_band_route`` decides K4 against K5 from ``(L, w)``.
 """
@@ -53,6 +61,10 @@ K5_ROWS_MAX_L = 512 * 40
 K5_BLOCK_FLOATS = _RESIDENT_SMEM_BYTES // 4
 K5_MAX_CLUSTER = 8
 K5_FORMS = ("rows", "cluster", "scratch")
+# K4's forms; the warp form holds the 2 wb + 1 slots of the band in 32
+# lanes of at most 16 registers
+K4_FORMS = ("warp", "block")
+K4_WARP_MAX_WB = (32 * 16 - 1) // 2
 # K5's scratch form: persistent-grid blocks per SM (fewer when there are
 # fewer pairs)
 STREAM_BLOCKS_PER_SM = 2
@@ -65,6 +77,13 @@ def dtw_band_route(L: int, w: int | None) -> str:
     wb = _band_width(L, w)
     return ("resident" if 2 * (2 * wb + 1) * 4 <= _RESIDENT_SMEM_BYTES
             else "stream")
+
+
+def k4_form(L: int, w: int | None) -> str:
+    """K4's (and K6's) form for ``(L, w)``: ``"warp"`` while the band's
+    ``2 wb + 1`` slots fit a warp's registers (wb <= 255), else
+    ``"block"``."""
+    return "warp" if _band_width(L, w) <= K4_WARP_MAX_WB else "block"
 
 
 def k5_form(L: int, w: int | None) -> str:
@@ -93,15 +112,17 @@ def dtw_band_cuda(a: Tensor, b: Tensor, w: int | None = None, cutoff=None,
     """Pairwise banded DTW ``(P, L), (P, L) -> (P,)`` on the card, with
     the row-block abandon rule of ``core.dtw.dtw_band_blocked``.
 
-    ``stream=True`` runs K5 at any shape, in the form ``k5_form(L, w)``
-    picks; ``form`` (one of ``K5_FORMS``) runs another, so each form can
-    be held against the plain version at small shapes; ``cluster`` sets
-    the blocks of form ``"cluster"`` (2 to ``K5_MAX_CLUSTER``; by default
-    ``k5_cluster_size``), so each cluster size can be held too.
-    Otherwise K4, or K6 with ``early_exit=False`` (which tests every
-    anti-diagonal, so ``row_block`` does not apply).  K4 and K6 raise where
-    ``dtw_band_route`` says the band needs K5; K5 implies early exit, as
-    the JAX streaming kernel does.
+    K4, or K6 with ``early_exit=False`` (which tests every anti-diagonal,
+    so ``row_block`` does not apply), in the form ``k4_form(L, w)``
+    picks; ``form`` (one of ``K4_FORMS``) runs another, so both can be
+    held against the plain version at the same shapes.  K4 and K6 raise
+    where ``dtw_band_route`` says the band needs K5, and the warp form
+    raises past wb = 255.  ``stream=True`` runs K5 at any shape, in the
+    form ``k5_form(L, w)`` picks or ``form`` (one of ``K5_FORMS``);
+    ``cluster`` sets the blocks of form ``"cluster"`` (2 to
+    ``K5_MAX_CLUSTER``; by default ``k5_cluster_size``), so each cluster
+    size can be held too.  K5 implies early exit, as the JAX streaming
+    kernel does.
     """
     if a.dim() != 2:
         raise ValueError(f"a: expected (P, L), got {tuple(a.shape)}")
@@ -114,9 +135,14 @@ def dtw_band_cuda(a: Tensor, b: Tensor, w: int | None = None, cutoff=None,
         cut = torch.as_tensor(cutoff, dtype=a.dtype, device=a.device)
         cut = cut.expand(P).contiguous()
     wb = _band_width(L, w)
-    if form is not None:
-        if not stream:
-            raise ValueError("form applies to K5 (stream=True)")
+    if form is not None and not stream:
+        if form not in K4_FORMS:
+            raise ValueError(f"form = {form!r}: expected one of {K4_FORMS} "
+                             f"(or {K5_FORMS} with stream=True)")
+        if form == "warp" and wb > K4_WARP_MAX_WB:
+            raise ValueError(f"K4 warp form: band half-width {wb} > "
+                             f"{K4_WARP_MAX_WB}, past a warp's registers")
+    if form is not None and stream:
         if form not in K5_FORMS:
             raise ValueError(f"form = {form!r}: expected one of {K5_FORMS}")
         if form == "rows" and L > K5_ROWS_MAX_L:
@@ -125,7 +151,7 @@ def dtw_band_cuda(a: Tensor, b: Tensor, w: int | None = None, cutoff=None,
         if form == "cluster" and k5_form(L, w) == "scratch":
             raise ValueError(f"K5 cluster form: band half-width {wb} needs "
                              f"more than {K5_MAX_CLUSTER} blocks")
-    kform = (form or k5_form(L, w)) if stream else None
+    kform = form or (k5_form(L, w) if stream else k4_form(L, w))
     n_cluster = k5_cluster_size(L, w)
     if cluster is not None:
         if kform != "cluster":
@@ -169,15 +195,12 @@ def dtw_band_cuda(a: Tensor, b: Tensor, w: int | None = None, cutoff=None,
             scratch.data_ptr(), grid, P, L, wb, R, sp),
             "dtw_band_stream_scratch")
         _build.COUNTS["dtw_band_stream_scratch"] += 1
-    elif early_exit:
-        _build.check(lib.dtw_band_launch(a.data_ptr(), b.data_ptr(),
-                                         cut.data_ptr(), out.data_ptr(), P,
-                                         L, wb, R, sp), "dtw_band")
-        _build.COUNTS["dtw_band"] += 1
     else:
-        _build.check(lib.dtw_band_step_launch(a.data_ptr(), b.data_ptr(),
-                                              cut.data_ptr(),
-                                              out.data_ptr(), P, L, wb, sp),
-                     "dtw_band_step")
-        _build.COUNTS["dtw_band_step"] += 1
+        # K4 (early exit) or K6, in form kform
+        name = ("dtw_band" if early_exit else "dtw_band_step") + (
+            "_block" if kform == "block" else "")
+        args = [a.data_ptr(), b.data_ptr(), cut.data_ptr(), out.data_ptr(),
+                P, L, wb] + ([R] if early_exit else [])
+        _build.check(getattr(lib, name + "_launch")(*args, sp), name)
+        _build.COUNTS[name] += 1
     return out

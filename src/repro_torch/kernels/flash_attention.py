@@ -18,6 +18,15 @@ the causal wedge or the window.
   rows, key tiles of 32 in shared memory; the f32 tolerance (1e-4) is
   below what bf16 or TF32 products reach.
 
+The wrapper takes what the kernels do not, exactly: a group of more than
+``MAX_GROUP`` query heads per kv head runs in launches of at most that
+many heads of each group; in bfloat16, a head dim that is not a multiple
+of 8 (the TMA's row stride) runs on copies zero-padded to the next
+multiple of 8, with the true ``D ** -0.5`` scale, and the output is cut
+back; storage that is not 16-byte aligned runs on an aligned copy.  Head
+dims past 256 are refused (a block keeps its query rows in shared
+memory).
+
 Forward only: inputs that require a gradient are refused (training,
 ROADMAP Queue 1 item 13(b), is to recompute through the plain version,
 as ``repro.kernels.ops._fa_bwd`` does).
@@ -26,13 +35,15 @@ as ``repro.kernels.ops._fa_bwd`` does).
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._launch import stream_ptr
 
 Tensor = torch.Tensor
 
-# query rows (query, head) of one block: g = Hq / Hkv may not exceed it
+# query rows (query, head) of one block: a launch folds at most this many
+# query heads of a kv head (g = Hq / Hkv)
 MAX_GROUP = 64
 MAX_HEAD_DIM = 256
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -68,9 +79,6 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
                          f"{tuple(k.shape)} and {tuple(v.shape)}")
     if Hkv == 0 or Hq % Hkv:
         raise ValueError(f"Hq = {Hq} is not a multiple of Hkv = {Hkv}")
-    if Hq // Hkv > MAX_GROUP:
-        raise ValueError(f"{Hq // Hkv} query heads per kv head: the kernel "
-                         f"folds at most {MAX_GROUP} into a block")
     if D > MAX_HEAD_DIM:
         raise ValueError(f"head dim {D} > {MAX_HEAD_DIM}: the kernel keeps "
                          "a block's query rows in shared memory")
@@ -78,25 +86,56 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
         raise ValueError(f"window = {window}: expected None or >= 1")
     if score_cap is not None and not score_cap > 0:
         raise ValueError(f"score_cap = {score_cap}: expected None or > 0")
-    bf16 = q.dtype == torch.bfloat16
-    if bf16 and D % 8:
-        raise ValueError(f"head dim {D}: the bfloat16 form loads rows by "
-                         "TMA, which needs a multiple of 8")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    if bf16 and any(x.data_ptr() % 16 for x in (q, k, v, out)):
-        raise ValueError("q, k, v: the bfloat16 form needs 16-byte "
-                         "aligned storage")
+    _attend(q, k, v, out, causal, window, score_cap, D ** -0.5)
+    return out
+
+
+def _attend(q: Tensor, k: Tensor, v: Tensor, out: Tensor, causal: bool,
+            window: int | None, score_cap: float | None,
+            scale: float) -> None:
+    """Write the attention of checked inputs into ``out``, splitting the
+    query-head groups and padding or copying bf16 operands as the kernels
+    need."""
+    B, Sq, Hq, D = q.shape
+    Hkv = k.shape[2]
+    g = Hq // Hkv
+    if g > MAX_GROUP:
+        # heads [j0, j1) of every group: a contiguous (B, Sq, Hkv * gc, D)
+        # copy, whose group of gc heads attends kv head j as before
+        parts = -(-g // MAX_GROUP)
+        gc = -(-g // parts)
+        q5 = q.view(B, Sq, Hkv, g, D)
+        o5 = out.view(B, Sq, Hkv, g, D)
+        for j0 in range(0, g, gc):
+            j1 = min(j0 + gc, g)
+            qs = q5[:, :, :, j0:j1].reshape(B, Sq, Hkv * (j1 - j0), D)
+            os_ = torch.empty_like(qs)
+            _attend(qs, k, v, os_, causal, window, score_cap, scale)
+            o5[:, :, :, j0:j1] = os_.view(B, Sq, Hkv, j1 - j0, D)
+        return
+    bf16 = q.dtype == torch.bfloat16
+    if bf16 and D % 8:
+        # zero columns add nothing to q k^T; v's zero columns are cut off
+        pad = (0, -D % 8)
+        qp, kp, vp = (F.pad(x, pad) for x in (q, k, v))
+        op = torch.empty_like(qp)
+        _attend(qp, kp, vp, op, causal, window, score_cap, scale)
+        out.copy_(op[..., :D])
+        return
+    if bf16:
+        # the TMA reads 16-byte aligned storage (out is always fresh)
+        q, k, v = (x.clone() if x.data_ptr() % 16 else x for x in (q, k, v))
     lib = _build.library()
     launch, name = ((lib.flash_attention_bf16_launch, "flash_attention")
                     if bf16 else
                     (lib.flash_attention_f32_launch, "flash_attention_f32"))
     _build.check(launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
-        Skv, Hq, Hkv, D, int(bool(causal)),
+        k.shape[1], Hq, Hkv, D, int(bool(causal)),
         0 if window is None else int(window),
-        0.0 if score_cap is None else float(score_cap), float(D ** -0.5),
+        0.0 if score_cap is None else float(score_cap), float(scale),
         stream_ptr(q.device)), name)
     _build.COUNTS[name] += 1
-    return out

@@ -4,11 +4,15 @@
 Replaces ``src/repro/kernels/mamba_scan.py:mamba_scan_pallas``
 (``_mamba_scan_kernel``).  Bound on this card: bytes, the inputs and
 outputs once, ``B S (2C + 2N) 4 + B S C 4``: ~0.8 GB, ~0.24 ms at
-falcon-mamba-7b's B = 4, S = 2048, C = 8192, N = 16.  Design: one thread
-per (batch row, channel) carries ``h[N]`` in registers through the whole
-sequence; blocks of 128 channels stage chunks of 16 time steps of the
-shared B and C rows and of their own delta and u columns in shared
-memory.  Forward only: inputs that require a gradient are refused
+falcon-mamba-7b's B = 4, S = 2048, C = 8192, N = 16.  Design: states
+across lanes -- a group of G lanes per (batch row, channel) (G = 2 at
+N = 16), lane k carrying the 8 states from ``8 k`` in registers through
+the whole sequence, so ``N <= 256``; the group is skewed one step a lane
+and passes each step's running sum down by one shuffle, so y keeps the
+plain version's n-ordered sum; blocks copy chunks of 32 steps of the
+shared B and C rows and of their own delta and u columns to shared
+memory by ``cp.async``, the next chunk's while this one runs.
+Forward only: inputs that require a gradient are refused
 (training, ROADMAP Queue 1 item 13(b), is to recompute through the plain
 version, as ``repro.kernels.ops._mamba_bwd`` does).
 """
@@ -22,8 +26,9 @@ from repro_torch.kernels._launch import cuda_f32, stream_ptr
 
 Tensor = torch.Tensor
 
-# the state h[N] lives in each thread's registers
-MAX_STATE = 64
+# the state h[N] lives in the registers of a group of at most 32 lanes, 8
+# a lane
+MAX_STATE = 256
 
 
 def mamba_scan_cuda(delta: Tensor, u: Tensor, A: Tensor, Bmat: Tensor,
@@ -49,7 +54,8 @@ def mamba_scan_cuda(delta: Tensor, u: Tensor, A: Tensor, Bmat: Tensor,
                              "input may not require a gradient")
     if not 1 <= N <= MAX_STATE:
         raise ValueError(f"ssm state N = {N}: the kernel keeps h[N] in "
-                         f"registers and takes 1 <= N <= {MAX_STATE}")
+                         f"the registers of at most 32 lanes and takes "
+                         f"1 <= N <= {MAX_STATE}")
     y = torch.empty_like(delta)
     hT = torch.empty_like(h0)
     if Bsz == 0 or C == 0:

@@ -103,8 +103,9 @@ def dtw_band_op(a: Tensor, b: Tensor, w: int | None = None, cutoff=None,
     the JAX kernel's pair-tile cap; these kernels run one pair per block,
     so it is accepted and ignored.
 
-    On the card ``dtw_band_route(L, w)`` picks K4 (K6) while the band's
-    state fits a block's shared memory and K5 past that; past the
+    On the card ``dtw_band_route(L, w)`` picks K4 (K6), in the form
+    ``k4_form(L, w)`` picks, while the band's state fits a block's shared
+    memory and K5 past that; past the
     crossover ``early_exit=False`` is ignored, as in the JAX package.
     Every ``(L, w)`` runs on the card; none falls back to the plain
     version.  On the CPU the plain versions run: ``ref.dtw_band_ref``, or

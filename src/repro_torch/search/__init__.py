@@ -10,6 +10,7 @@ from repro_torch.search.cascade import (
     enhanced_all_pairs,
     lb_kim_tier,
     run_plan,
+    staged_bounds,
 )
 from repro_torch.search.engine import (
     EngineConfig,
@@ -64,6 +65,7 @@ __all__ = [
     "dense_plan", "enhanced_all_pairs", "get_tier", "index_from_numpy",
     "kim_features", "lb_kim_tier", "list_tiers", "nn_search",
     "optimise_plan", "preflight_engine", "register_tier",
-    "registered_tiers", "run_plan", "sketch_features", "tier_cost_weight",
+    "registered_tiers", "run_plan", "sketch_features", "staged_bounds",
+    "tier_cost_weight",
     "unregister_tier", "validate_series",
 ]

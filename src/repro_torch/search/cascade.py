@@ -439,6 +439,17 @@ def run_plan(q: Tensor, index: DTWIndex, cfg: CascadeConfig,
                          stats=stats, guard=guard)
 
 
+def staged_bounds(q: Tensor, index: DTWIndex, cfg: CascadeConfig,
+                  k: int = 1, dtw_fn: Callable | None = None, *,
+                  exclude: Tensor | None = None,
+                  plan: VerificationPlan | None = None) -> CascadeResult:
+    """Execute the default (or given) staged tier plan: the historical
+    entry point of ``repro.search.cascade``; ``run_plan`` is the general
+    executor it wraps."""
+    return run_plan(q, index, cfg, plan=plan, k=k, dtw_fn=dtw_fn,
+                    exclude=exclude)
+
+
 def _tier_stats(q, index, cfg, plan, exclude, seed_d, lb01, ap_snaps,
                 ap_masked, cand, pw_snaps, plive) -> TierStats:
     """Price every tier of an executed plan against the seeds' threshold

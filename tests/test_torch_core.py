@@ -10,6 +10,8 @@ while the port keeps it unfused, as its CUDA kernel does.  The float64
 oracles agree to rtol 1e-4 (float32 accumulation over L cells).
 """
 
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,7 +23,11 @@ from repro.core import lower_bounds as jlb
 from repro.core import oracle
 from repro.core.dtw import dtw_band_blocked as j_dtw_band_blocked
 from repro.core.dtw import row_block_policy as j_row_block_policy
-from repro_torch.core import distances, dtw, envelopes, lower_bounds
+from repro_torch.core import distances, envelopes, lower_bounds
+
+# the module (repro_torch.core exports the function ``dtw`` under the same
+# name, as repro.core does)
+dtw = importlib.import_module("repro_torch.core.dtw")
 
 L = 33
 WS = [0, 1, L // 4, L]

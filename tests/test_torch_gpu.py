@@ -5,16 +5,17 @@ made in a fixture, never at import).  Run on a machine with a card:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
-Tolerances: envelopes, banded DTW (K4, the per-step K6 and the three
-forms of the wide-band K5), the bands-only LB_ENHANCED and the sketch
+Tolerances: envelopes, banded DTW (K4 and the per-step K6, each in its
+warp and block forms, and the three forms of the wide-band K5), the bands-only LB_ENHANCED and the sketch
 bound are bit-equal with the same +-inf positions; the full
 LB_ENHANCED forms and LB_Keogh agree to rtol 1e-5, atol 1e-6 (their
 L-term sums run in another order).  Flash attention (K9) agrees with its
 plain version to rtol 1e-4, atol 1e-5 in float32 (its CUDA-core form)
 and to rtol 1e-2, atol 1e-2 in bfloat16 (its tensor-core form: P is
 rounded to bf16 for the PV product, and the outputs are bf16); the
-selective scan (K10) to rtol 1e-5, atol 1e-6 (its N-sum runs in another
-order).
+selective scan (K10) bit for bit (its N-sum keeps the plain version's
+order; where the tests below say rtol 1e-5, atol 1e-6, they hold the
+sweep of earlier slices to that bound too).
 """
 
 import numpy as np
@@ -24,11 +25,14 @@ import torch
 from repro_torch.data import make_dataset
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.dtw_band import (
+    K4_FORMS,
+    K4_WARP_MAX_WB,
     K5_FORMS,
     K5_ROWS_MAX_L,
     STREAM_BLOCKS_PER_SM,
     dtw_band_cuda,
     dtw_band_route,
+    k4_form,
     k5_form,
 )
 from repro_torch.kernels.envelope import envelope_cuda
@@ -36,7 +40,7 @@ from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.lb_enhanced import lb_enhanced_cuda
 from repro_torch.kernels.lb_enhanced_pairwise import lb_enhanced_pairwise_cuda
 from repro_torch.kernels.lb_keogh import lb_keogh_cuda
-from repro_torch.kernels.mamba_scan import mamba_scan_cuda
+from repro_torch.kernels.mamba_scan import MAX_STATE, mamba_scan_cuda
 from repro_torch.kernels.sketch import sketch_bound_cuda
 from repro_torch.search import (
     CascadeConfig,
@@ -128,6 +132,10 @@ DTW_SWEEP = [(37, 33, 0), (37, 33, 1), (37, 33, 8), (37, 33, 33),
 
 @pytest.mark.parametrize("P,L,w", DTW_SWEEP)
 def test_dtw_band_kernel_bit_equal_with_cutoffs(dev, P, L, w):
+    """K4 in the form ``k4_form`` picks and in each form forced that
+    holds the band (the block form alone past wb = 255), without cutoffs,
+    with cutoffs (every fifth slot -inf) and with row blocks of 7, each
+    form under its own launch count."""
     a, b = _rand(dev, 7, P, L), _rand(dev, 8, P, L)
     exact = ref.dtw_band_ref(a, b, w)
     _check(dtw_band_cuda(a, b, w), exact, exact=True)
@@ -139,6 +147,43 @@ def test_dtw_band_kernel_bit_equal_with_cutoffs(dev, P, L, w):
     assert torch.isposinf(got[::5]).all()
     _check(dtw_band_cuda(a, b, w, cut, row_block=7),
            ref.dtw_band_ref(a, b, w, cut, row_block=7), exact=True)
+    for form in K4_FORMS if k4_form(L, w) == "warp" else ("block",):
+        _build.reset_counts()
+        _check(dtw_band_cuda(a, b, w, form=form), exact, exact=True)
+        _check(dtw_band_cuda(a, b, w, cut, row_block=7, form=form),
+               ref.dtw_band_ref(a, b, w, cut, row_block=7), exact=True)
+        name = "dtw_band" if form == "warp" else "dtw_band_block"
+        assert _build.counts()[name] == 2
+        assert sum(_build.counts().values()) == 2
+
+
+@pytest.mark.parametrize("wb", [31, 32, 63, 64, 127, 128, K4_WARP_MAX_WB,
+                                K4_WARP_MAX_WB + 1])
+def test_dtw_band_forms_at_the_warp_form_edges(dev, wb):
+    """Bands at each warp-form slot count's edge (2, 4, 8, 16 slots a
+    lane) and just past the warp form (wb = 256 is the block form's):
+    both forms (where the warp form holds the band) and K6 bit-equal to
+    the plain version, with row-block cutoffs."""
+    P, L = 6, 2 * wb + 3
+    a, b = _rand(dev, 60, P, L), _rand(dev, 61, P, L)
+    exact = ref.dtw_band_ref(a, b, wb)
+    cut = exact * torch.tensor([0.3, 0.8, 0.95, 1.01, 2.0, float("-inf")],
+                               device=dev)
+    want = ref.dtw_band_ref(a, b, wb, cut)
+    want7 = ref.dtw_band_ref(a, b, wb, cut, row_block=7)
+    forms = K4_FORMS if wb <= K4_WARP_MAX_WB else ("block",)
+    assert k4_form(L, wb) == forms[0]
+    if wb > K4_WARP_MAX_WB:
+        with pytest.raises(ValueError, match="warp form"):
+            dtw_band_cuda(a, b, wb, form="warp")
+    for form in forms:
+        _check(dtw_band_cuda(a, b, wb, form=form), exact, exact=True)
+        _check(dtw_band_cuda(a, b, wb, cut, form=form), want, exact=True)
+        _check(dtw_band_cuda(a, b, wb, cut, row_block=7, form=form), want7,
+               exact=True)
+        _check(dtw_band_cuda(a, b, wb, cut, early_exit=False, form=form),
+               ref.dtw_band_ref(a, b, wb, cut, row_block=1), exact=True)
+    assert torch.isfinite(want[3:5]).all() and torch.isposinf(want[5])
 
 
 @pytest.mark.parametrize("P,L,w", DTW_SWEEP)
@@ -164,6 +209,9 @@ def test_stream_and_step_kernels_bit_equal_at_the_sweep(dev, P, L, w):
         step = dtw_band_cuda(a, b, w, c, early_exit=False)
         _check(step, ref.dtw_band_ref(a, b, w, c, row_block=1), exact=True)
         _check(step, k4, exact=True)
+        for form in K4_FORMS if k4_form(L, w) == "warp" else ("block",):
+            _check(dtw_band_cuda(a, b, w, c, early_exit=False, form=form),
+                   k4, exact=True)
 
 
 @pytest.mark.parametrize("with_cutoff", [False, True])
@@ -209,6 +257,7 @@ def test_stream_kernel_just_over_the_crossover(dev):
     got = ops.dtw_band_op(a, b, L)
     assert _build.counts()["dtw_band_stream"] == 1
     assert _build.counts()["dtw_band"] == 0
+    assert _build.counts()["dtw_band_block"] == 0
     want = ref.dtw_band_ref(a, b, L)
     _check(got, want, exact=True)
     cut = torch.stack([want[0] * 2, want[1] * 0.5])
@@ -293,6 +342,7 @@ def test_nn_search_routes_long_full_window_dtw_to_the_stream_kernel(dev):
     res = nn_search(idx, ds.x_test, cfg)
     counts = _build.counts()
     assert counts["dtw_band_stream"] > 0 and counts["dtw_band"] == 0
+    assert counts["dtw_band_block"] == 0
     bd, bi = brute_force(idx, ds.x_test, L, k=1)
     assert torch.equal(bi, res.idx) and torch.equal(bd, res.dists)
 
@@ -305,10 +355,11 @@ def test_wrappers_count_launches_and_refuse_bad_input(dev):
     dtw_band_cuda(x, x, 3, torch.zeros(4, device=dev))
     assert _build.counts() == {"envelope": 1, "lb_enhanced": 0,
                                "lb_enhanced_pairwise": 0, "dtw_band": 2,
-                               "dtw_band_stream": 0,
+                               "dtw_band_block": 0, "dtw_band_stream": 0,
                                "dtw_band_stream_cluster": 0,
                                "dtw_band_stream_scratch": 0,
-                               "dtw_band_step": 0, "sketch_bound": 0,
+                               "dtw_band_step": 0,
+                               "dtw_band_step_block": 0, "sketch_bound": 0,
                                "lb_keogh": 0, "flash_attention": 0,
                                "flash_attention_f32": 0, "mamba_scan": 0}
     with pytest.raises(ValueError, match="float32"):
@@ -320,6 +371,8 @@ def test_wrappers_count_launches_and_refuse_bad_input(dev):
     long = _rand(dev, 11, 1, 40000)
     with pytest.raises(ValueError, match="shared memory"):
         dtw_band_cuda(long, long, 40000)
+    with pytest.raises(ValueError, match="expected one of"):
+        dtw_band_cuda(x, x, 3, form="rows")
     assert _build.counts()["dtw_band"] == 2
 
 
@@ -464,9 +517,11 @@ def test_flash_attention_bf16_form_over_the_sweep(dev, B, Sq, Skv, Hq, Hkv,
                                atol=1e-2)
 
 
-# K10 sweep: N in {4, 16, 64}, S and C multiples of no tile, nonzero h0
+# K10 sweep: N in {4, 16, 17, 32, 64, 128, 256}, S and C multiples of no
+# tile, nonzero h0
 MAMBA_SWEEP = [(2, 33, 70, 4), (3, 100, 300, 16), (1, 17, 129, 64),
-               (2, 1, 5, 16), (1, 50, 128, 32)]
+               (2, 1, 5, 16), (1, 50, 128, 32), (2, 40, 33, 17),
+               (1, 70, 40, 128), (1, 40, 33, MAX_STATE)]
 
 
 @pytest.mark.parametrize("B,S,C,N", MAMBA_SWEEP)
@@ -481,6 +536,7 @@ def test_mamba_scan_kernel(dev, B, S, C, N):
     ry, rh = ref.mamba_scan_ref(delta, u, A, Bm, Cm, h0)
     torch.testing.assert_close(y, ry, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(h, rh, rtol=1e-5, atol=1e-6)
+    assert torch.equal(y, ry) and torch.equal(h, rh)
 
 
 def test_lm_kernel_wrappers_count_and_refuse(dev):
@@ -502,20 +558,13 @@ def test_lm_kernel_wrappers_count_and_refuse(dev):
     with pytest.raises(ValueError, match="head dim"):
         big = _rand(dev, 38, 1, 4, 2, 320)
         flash_attention_cuda(big, big, big)
-    with pytest.raises(ValueError, match="folds at most"):
-        flash_attention_cuda(_rand(dev, 39, 1, 4, 128, 8),
-                             _rand(dev, 40, 1, 4, 1, 8),
-                             _rand(dev, 41, 1, 4, 1, 8))
     with pytest.raises(ValueError, match="gradient"):
         mamba_scan_cuda(args[0].requires_grad_(), *args[1:])
-    wide = [args[0].detach(), args[1], -_rand(dev, 42, 8, 65).abs(),
-            _rand(dev, 43, 1, 6, 65), _rand(dev, 44, 1, 6, 65),
-            _rand(dev, 45, 1, 8, 65)]
+    wide = [args[0].detach(), args[1], -_rand(dev, 42, 8, 257).abs(),
+            _rand(dev, 43, 1, 6, 257), _rand(dev, 44, 1, 6, 257),
+            _rand(dev, 45, 1, 8, 257)]
     with pytest.raises(ValueError, match="registers"):
         mamba_scan_cuda(*wide)
-    with pytest.raises(ValueError, match="multiple of 8"):
-        odd = _rand(dev, 46, 1, 4, 2, 12).bfloat16()
-        flash_attention_cuda(odd, odd, odd)
     assert _build.counts()["flash_attention_f32"] == 1
     assert _build.counts()["flash_attention"] == 0
     assert _build.counts()["mamba_scan"] == 1
@@ -542,3 +591,38 @@ def test_lm_prefill_on_the_card_equals_the_cpu(dev, name, kernel):
     got, _, _ = model.prefill(on_card, {"tokens": tokens.to(dev)})
     assert _build.counts()[kernel] == cfg.n_layers
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("case", ["g96", "g65_bf16", "d12_bf16", "d100_bf16",
+                                  "unaligned_bf16"])
+def test_flash_attention_wrapper_repairs(dev, case):
+    """Inputs the kernels do not take, run exactly by the wrapper: more
+    than 64 query heads per kv head (split into launches of at most 64
+    heads of each group), bf16 head dims that are not a multiple of 8
+    (zero-padded, the true D's scale, the output cut back), and bf16
+    storage that is not 16-byte aligned (an aligned copy).  Each against
+    the plain version, at the tolerance of its type."""
+    dt = torch.float32 if case == "g96" else torch.bfloat16
+    B, Sq, Hkv = 1, 37, 2
+    g = {"g96": 96, "g65_bf16": 65}.get(case, 2)
+    D = {"d12_bf16": 12, "d100_bf16": 100}.get(case, 64)
+    q = _rand(dev, 70, B, Sq, Hkv * g, D).to(dt)
+    k = _rand(dev, 71, B, Sq, Hkv, D).to(dt)
+    v = _rand(dev, 72, B, Sq, Hkv, D).to(dt)
+    if case == "unaligned_bf16":
+        # views one element into their storage: 2-byte aligned
+        q, k, v = (_rand(dev, 73 + i, x.numel() + 1).to(dt)[1:].view(x.shape)
+                   for i, x in enumerate((q, k, v)))
+        assert all(x.data_ptr() % 16 for x in (q, k, v))
+    _build.reset_counts()
+    got = flash_attention_cuda(q, k, v, True, 16, 30.0)
+    want = ref.flash_attention_ref(q, k, v, True, 16, 30.0)
+    assert got.dtype == dt and got.shape == want.shape
+    tol = (dict(rtol=1e-4, atol=1e-5) if dt == torch.float32
+           else dict(rtol=1e-2, atol=1e-2))
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    name = "flash_attention_f32" if dt == torch.float32 else "flash_attention"
+    assert _build.counts()[name] == (2 if g > 64 else 1)
+    with pytest.raises(ValueError, match="head dim"):
+        big = _rand(dev, 38, 1, 4, 2, 264).to(dt)
+        flash_attention_cuda(big, big, big)

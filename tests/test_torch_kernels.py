@@ -199,11 +199,12 @@ def test_pair_perm_round_trip():
 def test_launch_counters_reset_and_read():
     counts = _build.counts()
     assert set(counts) == {"envelope", "lb_enhanced", "lb_enhanced_pairwise",
-                           "dtw_band", "dtw_band_stream",
+                           "dtw_band", "dtw_band_block", "dtw_band_stream",
                            "dtw_band_stream_cluster",
                            "dtw_band_stream_scratch", "dtw_band_step",
-                           "sketch_bound", "lb_keogh", "flash_attention",
-                           "flash_attention_f32", "mamba_scan"}
+                           "dtw_band_step_block", "sketch_bound", "lb_keogh",
+                           "flash_attention", "flash_attention_f32",
+                           "mamba_scan"}
     _build.COUNTS["dtw_band"] += 3
     assert _build.counts()["dtw_band"] == 3
     _build.reset_counts()

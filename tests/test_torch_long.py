@@ -29,7 +29,6 @@ from repro.search import EngineConfig as JEngineConfig
 from repro.search import build_index as j_build_index
 from repro.search import nn_search as j_nn_search
 from repro.search.guards import GuardConfig
-from repro_torch.core import dtw
 from repro_torch.data import make_dataset
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.dtw_band import (
@@ -44,8 +43,10 @@ from repro_torch.search import (
     nn_search,
 )
 
-# the module (repro.core exports the function ``dtw`` under the same name)
+# the modules (repro.core and repro_torch.core export the function ``dtw``
+# under the same name)
 jdtw = importlib.import_module("repro.core.dtw")
+dtw = importlib.import_module("repro_torch.core.dtw")
 
 RTOL = 1e-5
 # test_cutoff.py's sweep: (P, L, w, row_block)
