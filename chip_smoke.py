@@ -7,17 +7,21 @@
 
 1. prints the card (``nvidia-smi`` name and power limit) and builds the
    nine CUDA sources of K1-K10 from ``src/repro_torch/csrc`` (``nvcc``,
-   ``sm_90a``, one process per source), compiling the two redesigned
+   ``sm_90a``, one process per source), compiling the three redesigned
    sources once more with ``-Xptxas -v`` alongside; prints a ``ptxas:``
    line (registers, spill bytes and resident warps per SM of each
-   instantiation of K4's and K6's warp form and of K10; any spill
-   fails);
+   instantiation of K4's and K6's warp form, of K10 and of K7; any
+   spill fails);
 2. drives the main path once at full size -- ``build_index`` ->
    ``classify`` (which runs ``nn_search``, guards on by default) on
    N = 16384 store series of length L = 512 (w = 51, V = 4, k = 1,
    Q = 256 queries) -- with every kernel's launch count set to 0 just
    before and read just after (K4 must have run in its warp form only),
-   and records the inputs each kernel was given there;
+   and records the inputs each kernel was given there (K2 runs one launch
+   over the whole store per tier call); then searches again with K2
+   launched per chunk of ``candidate_chunk`` candidates, the earlier
+   dispatch (``_kernel_route`` patched), which must give the same ids,
+   distances and ``n_dtw`` (so do the sketch and long paths);
 3. checks the search: finite distances, neighbour ids equal to the
    kernel brute force for the first 64 queries and to a brute force
    through the plain DTW for the first 8, distances bit-equal;
@@ -66,7 +70,13 @@
 8. holds each kernel against its plain PyTorch version on the card: at the
    paths' recorded inputs (timed with CUDA events) and over a sweep of
    small shapes (w in {0, 1, L/4, L}, odd L, cutoffs that kill pairs,
-   ``live`` masks with all-dead tiles, ragged sizes); K4 and K6 in each
+   ``live`` masks with all-dead tiles, ragged sizes); K2 at the path's
+   whole-store launch, at the earlier chunk shape (C = 512) and as the
+   earlier chunked tier call (32 launches and a ``torch.cat``), its full form
+   against the plain version over chunks of 512 candidates; K7 also at Q
+   = 257, N = 65541 and on int8 storage off 16-byte alignment, with its
+   issue floor (7 FP32 instructions per (q, n, j) at 128 lanes an SM a
+   clock, the card's maximum SM clock); K4 and K6 in each
    of their two forms at the main path's input (the block form forced,
    the forms timed in turns) and over the sweep, which crosses the warp
    form's edge (wb = 255 / 256) and runs row blocks of 7; K1, K2 (both
@@ -90,7 +100,10 @@
    S), each shape in its own type and in bf16, to rtol 1e-4, atol 1e-5 in
    f32 and 1e-2 in bf16, where the relative RMS error must also stay
    within 1e-2; K9 also at the shapes its wrapper repairs (g = 96 in f32
-   and bf16, bf16 D = 100, bf16 storage off 16-byte alignment); K10 at a
+   and bf16, bf16 D = 100, bf16 storage off 16-byte alignment) and its
+   wide form (D > 256, two passes in f32) at D = 320 and 512 in f32 and
+   bf16 against the plain version, SDPA at D = 512 as the library time,
+   and over a sweep of D in {257, 320, 512, 1024}; K10 at a
    layer of the falcon prefill and over a sweep (N in {4, 16, 17, 32, 64,
    128, 256}, ragged S and C, nonzero h0), bit-equal;
 9. prints one ``{"kernels": [...]}`` line and, last, the device line
@@ -202,13 +215,14 @@ class SmokeFailure(Exception):
 
 # ptxas reports of the redesigned kernels: the source, and for each
 # instantiation (mangled-name pattern) the record it belongs to and a label
-PTXAS_SOURCES = ("dtw_band.cu", "mamba_scan.cu")
+PTXAS_SOURCES = ("dtw_band.cu", "mamba_scan.cu", "sketch.cu")
 PTXAS_KERNELS = [
     (r"_Z20dtw_band_warp_kernelILi(\d+)ELb0E", "dtw_band", "M={}"),
     (r"_Z20dtw_band_warp_kernelILi(\d+)ELb1E", "dtw_band_step", "M={}"),
     (r"_Z15dtw_band_kernelILb0ELb0E", "dtw_band_block", "block"),
     (r"_Z15dtw_band_kernelILb1ELb0E", "dtw_band_step_block", "block"),
     (r"_Z17mamba_scan_kernelILi(\d+)E", "mamba_scan", "G={}"),
+    (r"_Z19sketch_bound_kernel", "sketch_bound", "kernel"),
 ]
 
 
@@ -280,7 +294,7 @@ def ptxas_report(procs) -> dict:
             m = re.search(r"Used (\d+) registers", line)
             if m:
                 slot["registers"] = int(m.group(1))
-    for name in ("dtw_band", "dtw_band_step", "mamba_scan"):
+    for name in ("dtw_band", "dtw_band_step", "mamba_scan", "sketch_bound"):
         check(name in rep, f"ptxas reported no kernel of {name}")
         for label, slot in rep[name]["ptxas"].items():
             check(slot.get("spill_bytes") == 0,
@@ -292,7 +306,7 @@ def occupancy_report(rep: dict) -> dict:
     """Add each redesigned instantiation's resident warps per SM (CUDA's
     occupancy calculator at its launch's block size and shared memory)
     to a ``ptxas_report``: K4's and K6's warp form at the widest band of
-    each M, K10 at N = 8 G."""
+    each M, K10 at N = 8 G, K7 at the sketch path's S = 16."""
     from repro_torch.kernels import _build
 
     lib = _build.library()
@@ -303,6 +317,7 @@ def occupancy_report(rep: dict) -> dict:
                 (32 * m - 1) // 2, per_step)
     for g in (1, 2, 4, 8, 16, 32):
         got["mamba_scan", f"G={g}"] = lib.mamba_scan_occupancy(8 * g)
+    got["sketch_bound", "kernel"] = lib.sketch_bound_occupancy(16)
     for (name, label), warps in got.items():
         check(warps > 0, f"{name} {label}: occupancy query failed ({warps})")
         rep[name]["ptxas"][label]["resident_warps_per_sm"] = warps
@@ -324,6 +339,41 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+# the port's kernels by function name (the profiler's kernel names hold
+# these), to pick them out of a profile
+PORT_KERNELS = ("envelope_kernel", "lb_bands_kernel", "lb_enhanced_full",
+                "lb_enhanced_pairwise", "dtw_band", "sketch_bound_kernel",
+                "lb_keogh_kernel", "flash_fwd", "flash_wide",
+                "mamba_scan_kernel")
+
+
+def device_ms(fn, key: str, reps: int = 20) -> float:
+    """Mean device milliseconds per launch of the kernels whose name holds
+    ``key``, over ``reps`` calls of ``fn`` under ``torch.profiler``.
+    Back-to-back calls of a small kernel are host-bound (the wrapper's
+    checks and the ctypes call), so CUDA events around them time the
+    host; the profiler's device time is the kernel's own."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total, n = 0.0, 0
+    for e in prof.key_averages():
+        if key in e.key and getattr(e, "device_type", None) == \
+                DeviceType.CUDA:
+            total += getattr(e, "self_device_time_total", 0)
+            n += e.count
+    check(n > 0 and total > 0, f"the profiler saw no device time of {key}")
+    return total / n / 1e3
 
 
 def timed(fn):
@@ -475,6 +525,7 @@ def run_main_path(torch, dev):
           "a repeated nn_search gave another result")
 
     cost = guard_cost(torch, index, ds.x_test, cfg)
+    k2_parity = chunked_parity(torch, "main path", index, ds.x_test, cfg)
 
     y = torch.as_tensor(ds.y_test, device=dev)
     acc = (pred.long() == y.long()).float().mean().item()
@@ -490,9 +541,48 @@ def run_main_path(torch, dev):
                                                       ds.x_test, res, w),
         "accuracy": acc, "launches": launches,
         "guards": guard.summary(), "warm_search_guards": cost,
+        "warm_search_k2_parity": k2_parity,
     }
     print("main path: " + json.dumps(summary))
     return ds, index, cfg, res, launches, recs
+
+
+def chunked_parity(torch, label: str, index, queries, cfg) -> dict:
+    """A warm ``nn_search`` with K2 over the whole store per tier call,
+    then the same with K2 launched per chunk of ``candidate_chunk``
+    candidates (the earlier dispatch, ``_kernel_route`` patched; every
+    kernel still on the card): ids, distances and ``n_dtw`` must be
+    equal.  Returns each run's K2 launches."""
+    from repro_torch.kernels import _build
+    from repro_torch.search import cascade, nn_search
+
+    got = {}
+    orig = cascade._kernel_route
+    for mode in ("whole_store", "chunked"):
+        if mode == "chunked":
+            cascade._kernel_route = lambda q, c: False
+        try:
+            _build.reset_counts()
+            got[mode] = nn_search(index, queries, cfg)
+            torch.cuda.synchronize()
+        finally:
+            cascade._kernel_route = orig
+        got[mode + "_lb_enhanced_launches"] = _build.counts()["lb_enhanced"]
+    a, b = got["whole_store"], got["chunked"]
+    check(torch.equal(a.idx, b.idx) and torch.equal(a.dists, b.dists)
+          and torch.equal(a.n_dtw, b.n_dtw),
+          f"{label}: K2 over the whole store changed ids, distances or "
+          "n_dtw against the chunked launches")
+    # one launch per tier call: the chunked run makes ceil(N / chunk) a call
+    per_call = -(-index.n // min(cfg.cascade.candidate_chunk, index.n))
+    check(got["whole_store_lb_enhanced_launches"] > 0
+          and got["chunked_lb_enhanced_launches"]
+          == per_call * got["whole_store_lb_enhanced_launches"],
+          f"{label}: K2 made {got['whole_store_lb_enhanced_launches']} "
+          f"launches over the store against "
+          f"{got['chunked_lb_enhanced_launches']} chunked ({per_call} a "
+          "tier call)")
+    return {k: v for k, v in got.items() if k.endswith("_launches")}
 
 
 def guard_cost(torch, index, queries, cfg, reps: int = 2) -> dict:
@@ -597,6 +687,7 @@ def run_sketch_path(torch, dev):
     check(torch.isfinite(res.dists).all().item(), "sketch path: non-finite "
           "distances")
     cost = guard_cost(torch, index, ds.x_test, cfg)
+    k2_parity = chunked_parity(torch, "sketch path", index, ds.x_test, cfg)
     t5 = time.perf_counter()
     bd, bi = brute_force(index, ds.x_test[:32], w, k=K)
     torch.cuda.synchronize()
@@ -618,7 +709,7 @@ def run_sketch_path(torch, dev):
         "budget": stats.budget, "limit": stats.limit,
         "live_fraction": index.live.float().mean().item(),
         "launches": launches, "guards": stats.guards.summary(),
-        "warm_search_guards": cost,
+        "warm_search_guards": cost, "warm_search_k2_parity": k2_parity,
         "brute_force_32_queries_s": t6 - t5,
     }
     print("sketch path: " + json.dumps(summary))
@@ -722,6 +813,7 @@ def run_long_path(torch, dev):
           "long path: ids differ from the kernel brute force")
     check(torch.equal(bd, res.dists),
           "long path: distances not bit-equal to the kernel brute force")
+    k2_parity = chunked_parity(torch, "long path", index, ds.x_test, cfg)
     # row blocks K5 skipped on the path: death blocks (plain version) of
     # LONG_SAMPLE pairs spread evenly over every pair it verified
     sa, sb, sc = recs["dtw_band_cuda"].sample
@@ -744,6 +836,7 @@ def run_long_path(torch, dev):
                                                       ds.x_test, res, w),
         "accuracy": (pred.long() == y.long()).float().mean().item(),
         "launches": launches, "guards": guard.summary(),
+        "warm_search_k2_parity": k2_parity,
         "brute_force_all_queries_s": t6 - t5,
         "k5_pairs": k5_pairs,
         "sample_pairs": LONG_SAMPLE, "n_row_blocks": n_blocks,
@@ -895,7 +988,9 @@ def profile_call(torch, fn, label: str) -> None:
     print(f"profile ({label}, profiled): " + json.dumps({
         "wall_s": wall, "device_busy_s": busy,
         "idle_share": 1.0 - busy / wall,
-        "top_kernels_name_count_ms": rows[:12]}))
+        "top_kernels_name_count_ms": rows[:12],
+        "port_kernels_name_count_ms": [
+            r for r in rows if any(k in r[0] for k in PORT_KERNELS)]}))
 
 
 def profile_search(torch, ds, index, cfg, label: str) -> None:
@@ -1365,18 +1460,50 @@ def kernel_phases(torch, dev, recs, windows, sk_index, sk_queries,
             stacked_l, 2 * wp + 1, stride=1, padding=wp), 2, warmup=1)))
 
     # ---- K2 cross-block LB_ENHANCED (bands-only on the path) --------------
+    # The path's recorded call is one launch over the whole store.  The
+    # plain version's full form materialises (Q, C, L) intermediates, so
+    # it is compared over chunks of 512 candidates (the bound is per pair).
+    def lb_plain(q_, c_, u_, lo_, w_, v_, *, live=None, bands_only=False):
+        return torch.cat([ref.lb_enhanced_ref(
+            q_, c_[s:s + 512], u_[s:s + 512], lo_[s:s + 512], w_, v_,
+            live=None if live is None else live[s:s + 512],
+            bands_only=bands_only) for s in range(0, c_.shape[0], 512)],
+            dim=1)
+
+    def lb_chunked(q_, c_, u_, lo_, w_, v_, *, live=None, bands_only=False):
+        # the earlier dispatch: one launch per 512 candidates, then a cat
+        return torch.cat([lb_enhanced_cuda(
+            q_, c_[s:s + 512], u_[s:s + 512], lo_[s:s + 512], w_, v_,
+            live=None if live is None else live[s:s + 512],
+            bands_only=bands_only) for s in range(0, c_.shape[0], 512)],
+            dim=1)
+
     args = recs["lb_enhanced_cuda"].args
     kw = recs["lb_enhanced_cuda"].kwargs
     q, c, u, lo, w2, v = args
     check(kw.get("bands_only") is True, "the bands tier ran the full form")
     Q, L = q.shape
     C = c.shape[0]
+    check(C == main_idx.n, f"the bands tier's launch took {C} candidates, "
+          f"not the whole store ({main_idx.n})")
     nb = _n_bands(L, w2, v)
     err = compare("lb_enhanced bands", lb_enhanced_cuda(*args, **kw),
                   ref.lb_enhanced_ref(*args, **kw), exact=True)
+    compare("lb_enhanced bands = chunked launches", lb_chunked(*args, **kw),
+            lb_enhanced_cuda(*args, **kw), exact=True)
     err_full = compare("lb_enhanced full",
                        lb_enhanced_cuda(q, c, u, lo, w2, v),
-                       ref.lb_enhanced_ref(q, c, u, lo, w2, v), exact=False)
+                       lb_plain(q, c, u, lo, w2, v), exact=False)
+    # the sketch path's tier call: the sketch store under its live mask
+    sq_ = torch.as_tensor(sk_queries, dtype=torch.float32, device=dev)
+    sk_args = (sq_, sk_index.series, sk_index.upper, sk_index.lower, w2, v)
+    sk_kw = dict(live=sk_index.live, bands_only=True)
+    err_sk = compare("lb_enhanced bands (sketch store, live mask)",
+                     lb_enhanced_cuda(*sk_args, **sk_kw),
+                     ref.lb_enhanced_ref(*sk_args, **sk_kw), exact=True)
+    # the earlier chunk shape: the first 512 candidates
+    ch_args = (q, c[:512].contiguous(), u[:512].contiguous(),
+               lo[:512].contiguous(), w2, v)
     for Qs, Cs, Ls, ws, vs in [(3, 37, 33, 8, 4), (9, 70, 64, 1, 4),
                                (5, 33, 31, 0, 4), (4, 40, 24, 24, 8),
                                (2, 65, 9, 9, 4)]:
@@ -1396,8 +1523,11 @@ def kernel_phases(torch, dev, recs, windows, sk_index, sk_queries,
                     exact=False)
     bms, by = bound(4.0 * Q * C + 8.0 * nb * (Q + C),
                     float(band_ops(nb)) * Q * C)
+    Qs_, Cs_ = sq_.shape[0], sk_index.n
+    sk_live = int(sk_index.live.sum().item()) if sk_index.live is not None \
+        else Cs_
     (ql, cl, _, _, wl, vl), k2_long = long_lb("lb_enhanced", lb_enhanced_cuda,
-                                              ref.lb_enhanced_ref)
+                                              lb_plain)
     check(k2_long["long_path_bands_only"], "the long path's bands tier ran "
           "the full form")
     Ql, Ll = ql.shape
@@ -1411,7 +1541,31 @@ def kernel_phases(torch, dev, recs, windows, sk_index, sk_queries,
         ms=time_ms(lambda: lb_enhanced_cuda(*args, **kw), 50),
         plain_ms=time_ms(lambda: ref.lb_enhanced_ref(*args, **kw), 5),
         bound_ms=bms, bound_by=by, library_ms=None,
-        shape=f"Q={Q} C={C} L={L} w={w2} v={v} bands_only",
+        shape=f"Q={Q} C={C} L={L} w={w2} v={v} bands_only (the main path's "
+              "tier call: one launch over the whole store)",
+        device_ms=device_ms(lambda: lb_enhanced_cuda(*args, **kw),
+                            "lb_bands_kernel"),
+        chunked_tier_ms=time_ms(lambda: lb_chunked(*args, **kw), 20),
+        chunked_tier_launches=-(-C // 512),
+        chunk_shape=f"Q={Q} C=512 bands_only (the earlier launch)",
+        chunk_shape_ms=time_ms(lambda: lb_enhanced_cuda(
+            *ch_args, bands_only=True), 50),
+        chunk_shape_device_ms=device_ms(lambda: lb_enhanced_cuda(
+            *ch_args, bands_only=True), "lb_bands_kernel"),
+        chunk_shape_bound_ms=bound(4.0 * Q * 512 + 8.0 * nb * (Q + 512),
+                                   float(band_ops(nb)) * Q * 512)[0],
+        sketch_store_shape=f"Q={Qs_} C={Cs_} live={sk_live} bands_only "
+                           "(the sketch path's tier call)",
+        sketch_store_max_abs_err=err_sk,
+        sketch_store_ms=time_ms(lambda: lb_enhanced_cuda(*sk_args, **sk_kw),
+                                20),
+        sketch_store_device_ms=device_ms(
+            lambda: lb_enhanced_cuda(*sk_args, **sk_kw), "lb_bands_kernel"),
+        sketch_store_chunked_ms=time_ms(lambda: lb_chunked(*sk_args,
+                                                           **sk_kw), 10),
+        sketch_store_bound_ms=bound(
+            4.0 * Qs_ * Cs_ + 8.0 * nb * (Qs_ + Cs_) + Cs_,
+            float(band_ops(nb)) * Qs_ * sk_live)[0],
         full_form_max_abs_err=err_full,
         full_form_ms=time_ms(lambda: lb_enhanced_cuda(q, c, u, lo, w2, v),
                              20),
@@ -1764,9 +1918,33 @@ def kernel_phases(torch, dev, recs, windows, sk_index, sk_queries,
         compare(f"sketch_bound sweep {(Qs, Ns, Ss)}",
                 sketch_bound_cuda(qx, lx, hx, wx),
                 ref.sketch_bound_scaled(qx, lx, hx, wx), exact=True)
+    # full query tiles and a ragged one (Q = 257), on aligned int8 storage
+    # and one byte off it (the byte path)
+    for Ss in (7, 16, 256):
+        qx = randn(257, Ss) * 60
+        lx = torch.randint(-127, 100, (65541, Ss), generator=gen,
+                           dtype=torch.int8).to(dev)
+        hx = torch.clamp(lx.int() + torch.randint(0, 40, (65541, Ss),
+                                                  generator=gen).to(dev),
+                         max=127).to(torch.int8)
+        wx = torch.rand(Ss, generator=gen).to(dev) * 0.3
+        want = ref.sketch_bound_scaled(qx, lx, hx, wx)
+        compare(f"sketch_bound sweep (257, 65541, {Ss})",
+                sketch_bound_cuda(qx, lx, hx, wx), want, exact=True)
+        off = [torch.empty(lx.numel() + 1, dtype=torch.int8,
+                           device=dev)[1:].view(lx.shape) for _ in range(2)]
+        off[0].copy_(lx)
+        off[1].copy_(hx)
+        compare(f"sketch_bound sweep (257, 65541, {Ss}) unaligned",
+                sketch_bound_cuda(qx, off[0], off[1], wx), want, exact=True)
     # per (q, n, j): two subtracts, two maxes, two multiplies, one add
     bms, by = bound(4.0 * Q * S + 2.0 * N * S + 4.0 * S + 4.0 * Q * N,
                     7.0 * Q * N * S)
+    # the same 7 instructions, none fused, at the FP32 issue rate: 128
+    # lanes an SM a clock at the card's maximum SM clock
+    props = torch.cuda.get_device_properties(dev)
+    issue_ms = 7.0 * Q * N * S / (props.multi_processor_count * 128
+                                  * max_sm_clock_hz()) * 1e3
     out.append(dict(
         name="sketch_bound", route="cuda",
         source="src/repro_torch/csrc/sketch.cu",
@@ -1776,7 +1954,14 @@ def kernel_phases(torch, dev, recs, windows, sk_index, sk_queries,
         plain_ms=time_ms(lambda: ref.sketch_bound_scaled(qs, sk_lo, sk_hi,
                                                          wseg), 5),
         bound_ms=bms, bound_by=by, library_ms=None,
-        shape=f"Q={Q} N={N} S={S}"))
+        issue_floor_ms=issue_ms,
+        device_ms=device_ms(lambda: sketch_bound_cuda(qs, sk_lo, sk_hi, wseg),
+                            "sketch_bound_kernel"),
+        form="full query tiles: no predicates, the chunk's 16 weights in "
+             "registers, the query tile read as float4; ragged tiles "
+             "predicated",
+        shape=f"Q={Q} N={N} S={S}", bit_equal_to_plain=True,
+        **ptxas.get("sketch_bound", {})))
 
     # ---- K8 LB_Keogh (no search path; main-path envelopes) ----------------
     qk = torch.as_tensor(main_queries, dtype=torch.float32, device=dev)
@@ -1983,6 +2168,76 @@ def lm_kernel_phases(torch, dev, windows, lm_recs, ptxas):
         shape=f"the global layer's inputs in f32, cap={capg}",
         bound_peak="FP32 non-tensor 67 TFLOP/s, HBM 3.35 TB/s"))
     del qf, kf, vf
+
+    # ---- K9's wide form (D > 256, f32 or bf16 inputs, computed in f32) ----
+    # No configuration reaches it (gemma2-2b's d_head 256 is the largest):
+    # a causal prefill of gemma2-2b's geometry otherwise (B = 1, S = 2048,
+    # Hq = 8, Hkv = 4) at D = 320 and 512 in both types with the cap, and
+    # at D = 512 in f32 without it, the function SDPA also computes
+    wide_err = {}
+    wide_ms = {}
+    for Dw in (320, 512):
+        xw = [randn(1, 2048, H, Dw) for H in (8, 4, 4)]
+        for dts in ("float32", "bfloat16"):
+            xs = [x.to(getattr(torch, dts)) for x in xw]
+            _build.reset_counts()
+            got9 = flash_attention_cuda(*xs, True, None, 50.0)
+            check(_build.counts()["flash_attention_wide"] == 1
+                  and _build.counts()["flash_attention"] == 0
+                  and _build.counts()["flash_attention_f32"] == 0,
+                  f"K9 D={Dw} {dts}: not one launch of the wide form")
+            r = k9_compare(f"flash_attention_wide D={Dw} {dts}", got9,
+                           ref.flash_attention_ref(*xs, True, None, 50.0))
+            wide_err[f"D{Dw}_{dts}"] = r["max_abs_err"] \
+                if dts == "float32" else r["rel_rms_err"]
+            wide_ms[f"D{Dw}_{dts}"] = time_ms(
+                lambda: flash_attention_cuda(*xs, True, None, 50.0), 3,
+                warmup=1)
+    # a sweep past D = 256: ragged and unequal Sq / Skv, g in {1, 2, 8},
+    # causal and not, window, cap, each in f32 and bf16
+    for (Bs, Sq, Skv, Hq, Hkv, D, causal, win, cap) in [
+            (2, 40, 40, 2, 2, 257, True, None, None),
+            (1, 77, 77, 8, 4, 320, True, 16, 30.0),
+            (1, 100, 70, 8, 1, 512, False, None, 50.0),
+            (1, 33, 90, 2, 1, 1024, False, 20, None)]:
+        xw = [randn(Bs, Sq, Hq, D), randn(Bs, Skv, Hkv, D),
+              randn(Bs, Skv, Hkv, D)]
+        for dts in ("float32", "bfloat16"):
+            xs = [x.to(getattr(torch, dts)) for x in xw]
+            k9_compare(f"flash_attention_wide sweep {(Bs, Sq, Skv, Hq, Hkv, D)}"
+                       f" {dts}", flash_attention_cuda(*xs, causal, win, cap),
+                       ref.flash_attention_ref(*xs, causal, win, cap))
+    qw, kw_, vw = randn(1, 2048, 8, 512), randn(1, 2048, 4, 512), \
+        randn(1, 2048, 4, 512)
+    errw = k9_compare("flash_attention_wide D=512 float32 no cap",
+                      flash_attention_cuda(qw, kw_, vw, True),
+                      ref.flash_attention_ref(qw, kw_, vw, True))
+    bmsw, byw = bound((2 * qw.numel() + 2 * kw_.numel()) * 4,
+                      4.0 * 8 * 512 * attn_pairs(2048, 2048, True, None))
+    qwt, kwt, vwt = (x.transpose(1, 2) for x in (qw, kw_, vw))
+    out.append(dict(
+        name="flash_attention_wide", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:119",
+        **path_launches("flash_attention_wide"),
+        max_abs_err=errw["max_abs_err"],
+        ms=time_ms(lambda: flash_attention_cuda(qw, kw_, vw, True), 3,
+                   warmup=1),
+        plain_ms=time_ms(lambda: ref.flash_attention_ref(qw, kw_, vw, True),
+                         3, warmup=1),
+        bound_ms=bmsw, bound_by=byw,
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            qwt, kwt, vwt, is_causal=True, enable_gqa=True), 3, warmup=1),
+        library_call="F.scaled_dot_product_attention(is_causal=True, "
+                     "enable_gqa=True) at the same inputs",
+        form="D > 256: two passes in f32 on CUDA cores (row max and sum, "
+             "then P V per 128 output columns), shared memory fixed in D",
+        shape="B=1 S=2048 Hq=8 Hkv=4 D=512 float32 causal, no cap",
+        bound_peak="FP32 non-tensor 67 TFLOP/s, HBM 3.35 TB/s",
+        cap50_ms=wide_ms, cap50_err=wide_err,
+        cap50_err_kind="f32: max abs error; bf16: relative RMS error",
+        tol=K9_TOL, bf16_rel_rms_tol=K9_BF16_REL_RMS))
+    del qw, kw_, vw, qwt, kwt, vwt
 
     # ---- K10 selective scan (falcon-mamba-7b's prefill) -------------------
     args = lm_recs["mamba_scan"]

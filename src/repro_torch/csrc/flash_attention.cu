@@ -1,14 +1,18 @@
 // K9: fused attention forward with online softmax (GQA, causal, sliding
 // window, score soft-cap).  q (B, Sq, Hq, D), k and v (B, Skv, Hkv, D)
 // -> o (B, Sq, Hq, D) in q's type.  Positions are implicit: query row i
-// attends key rows <= i (causal) and > i - window.  Two forms, chosen by
-// the input type alone (kernels/flash_attention.py):
+// attends key rows <= i (causal) and > i - window.  Three forms
+// (kernels/flash_attention.py picks): for D <= 256 by the input type,
 //
 //   bfloat16  flash_fwd_wgmma: tensor cores (wgmma), K/V tiles by TMA
 //             (below, after the f32 form);
 //   float32   flash_fwd_kernel: CUDA cores in f32 (this part), which the
 //             f32 sweep's 1e-4 tolerance needs (neither bf16 nor TF32
-//             products meet it).
+//             products meet it);
+//
+// and for D > 256, either type, flash_wide_stats + flash_wide_out (at
+// the end of the file): two passes in f32 whose shared memory is fixed
+// in D.
 //
 // Replaces src/repro/kernels/flash_attention.py:flash_attention_pallas
 // (_flash_fwd_kernel).  Bound on this card: operations -- 4 D per
@@ -48,6 +52,12 @@
 
 __device__ __forceinline__ float fa_load(const float* p) { return *p; }
 __device__ __forceinline__ void fa_store(float* p, float x) { *p = x; }
+__device__ __forceinline__ float fa_load(const __nv_bfloat16* p) {
+    return __bfloat162float(*p);
+}
+__device__ __forceinline__ void fa_store(__nv_bfloat16* p, float x) {
+    *p = __float2bfloat16(x);           // round to nearest even
+}
 
 template <int DMAX>
 constexpr int fa_smem_floats() {
@@ -698,4 +708,305 @@ extern "C" int flash_attention_bf16_launch(const void* q, const void* k,
                                          causal, window, cap, scale, s);
     return flash_wgmma_launch_t<256>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D,
                                      causal, window, cap, scale, s);
+}
+
+// ---------------------------------------------------------------------------
+// The wide form: any head dim D > 256, f32 or bf16 inputs, computed in f32
+// on CUDA cores.  Both forms above keep a block's query rows (and the bf16
+// form its K/V tiles) in shared memory sized by D, which does not fit past
+// D = 256; this form's shared memory is fixed (~50 KB) whatever D, at the
+// price of computing S = Q K^T twice or more.  Two passes, the rows folded
+// as in the f32 form (FA_R = 64 rows, key tiles of FA_TK = 32):
+//
+//   flash_wide_stats: grid (B x Hkv, query tiles).  For each key tile it
+//     computes the 64 x 32 scores over D in chunks of FW_DC columns of the
+//     scaled q and of k staged in shared memory, applies the cap and the
+//     masks, and updates each row's running max m and sum l (the f32
+//     form's online softmax without the accumulator); it writes the final
+//     m and l of each row to the scratch ml (2, B, Sq, Hq).
+//   flash_wide_out: grid (B x Hkv, query tiles, D / FW_DO).  Each block
+//     owns FW_DO output columns: it recomputes each key tile's scores the
+//     same way, takes p = exp(s - m) with m already final (no rescaling),
+//     stages its FW_DO columns of the v tile and accumulates p v in
+//     registers, then writes acc / max(l, 1e-30).
+//
+// Semantics as the f32 form: q scaled by D**-0.5 in f32 before the
+// product, f32 accumulation, cap before mask, the finite FA_NEG for masked
+// scores, causal and window with key tiles outside them skipped, l floored
+// at 1e-30.  bf16 inputs are read as bf16 and converted; the output is
+// rounded to bf16 once.  On no path (no configuration has d_head > 256).
+#define FW_DC 64           // D columns of q and k staged per chunk
+#define FW_DO 128          // output columns per block of the second pass
+#define FW_QS (FW_DC + 1)  // padded row stride of the staged chunks
+
+constexpr int fw_smem_floats(bool out_pass) {
+    return FA_R * FW_QS + FA_TK * FW_QS + FA_R * (FA_TK + 1) + 2 * FA_R
+           + (out_pass ? FA_TK * FW_DO : 0);
+}
+
+// The scores of rows tr*4 + i, key columns tc and tc + 16 of key tile k0,
+// over all of D (q scaled), capped and masked, into p_sh.  Leaves the
+// block synchronised.
+template <typename T>
+__device__ __forceinline__ void fw_scores(
+        const T* __restrict__ q, const T* __restrict__ k, float* q_sh,
+        float* k_sh, float* p_sh, int b, int hk, int q0, int nq, int rows,
+        int k0, int Sq, int Skv, int Hq, int Hkv, int D, int g, int causal,
+        int window, float cap, float scale) {
+    const int tid = threadIdx.x;
+    const int tr = tid >> 4, tc = tid & 15;
+    float s[4][2];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[i][0] = s[i][1] = 0.f;
+    for (int d0 = 0; d0 < D; d0 += FW_DC) {
+        __syncthreads();            // the last chunk (or tile) is read
+        for (int e = tid; e < FA_R * FW_DC; e += FA_THREADS) {
+            const int r = e / FW_DC, d = d0 + e % FW_DC;
+            float x = 0.f;
+            if (r < rows && r / g < nq && d < D) {
+                const int qi = q0 + r / g, h = hk * g + r % g;
+                x = fa_load(q + (((size_t)b * Sq + qi) * Hq + h) * D + d)
+                    * scale;
+            }
+            q_sh[r * FW_QS + e % FW_DC] = x;
+        }
+        for (int e = tid; e < FA_TK * FW_DC; e += FA_THREADS) {
+            const int j = e / FW_DC, d = d0 + e % FW_DC;
+            const int kj = k0 + j;
+            k_sh[j * FW_QS + e % FW_DC] =
+                (kj < Skv && d < D)
+                    ? fa_load(k + (((size_t)b * Skv + kj) * Hkv + hk) * D + d)
+                    : 0.f;
+        }
+        __syncthreads();
+#pragma unroll 4
+        for (int d = 0; d < FW_DC; ++d) {
+            const float k0v = k_sh[tc * FW_QS + d];
+            const float k1v = k_sh[(tc + 16) * FW_QS + d];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                const float qv = q_sh[(tr * 4 + i) * FW_QS + d];
+                s[i][0] += qv * k0v;
+                s[i][1] += qv * k1v;
+            }
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const int r = tr * 4 + i;
+        const int qi = q0 + r / g;
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+            const int c = tc + 16 * jj;
+            const int kj = k0 + c;
+            float x = s[i][jj];
+            if (cap > 0.f) x = cap * tanhf(x / cap);
+            const int dp = qi - kj;
+            bool ok = kj < Skv;
+            if (causal) ok = ok && dp >= 0;
+            if (window > 0) ok = ok && dp < window;
+            p_sh[r * (FA_TK + 1) + c] = ok ? x : FA_NEG;
+        }
+    }
+    __syncthreads();
+}
+
+// key tiles that hold an unmasked (valid query, key) pair, as the f32 form
+__device__ __forceinline__ void fw_key_range(int q0, int nq, int Skv,
+                                             int causal, int window,
+                                             int* kbeg, int* kend) {
+    int b0 = 0, e0 = Skv;
+    if (causal) e0 = min(Skv, q0 + nq);
+    if (window > 0) b0 = max(0, q0 - window + 1);
+    *kbeg = (b0 / FA_TK) * FA_TK;
+    *kend = e0;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(FA_THREADS)
+flash_wide_stats(const T* __restrict__ q, const T* __restrict__ k,
+                 float* __restrict__ ml, int B, int Sq, int Skv, int Hq,
+                 int Hkv, int D, int g, int tq, int causal, int window,
+                 float cap, float scale) {
+    extern __shared__ float smem[];
+    float* q_sh = smem;                         // [FA_R][FW_QS]
+    float* k_sh = q_sh + FA_R * FW_QS;          // [FA_TK][FW_QS]
+    float* p_sh = k_sh + FA_TK * FW_QS;         // [FA_R][FA_TK + 1]
+    float* m_sh = p_sh + FA_R * (FA_TK + 1);    // [FA_R]
+    float* l_sh = m_sh + FA_R;                  // [FA_R]
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int b = blockIdx.x / Hkv, hk = blockIdx.x % Hkv;
+    const int q0 = blockIdx.y * tq;
+    const int nq = min(tq, Sq - q0);
+    const int rows = tq * g;
+    for (int r = tid; r < FA_R; r += FA_THREADS) {
+        m_sh[r] = FA_NEG;
+        l_sh[r] = 0.f;
+    }
+    int kbeg, kend;
+    fw_key_range(q0, nq, Skv, causal, window, &kbeg, &kend);
+    for (int k0 = kbeg; k0 < kend; k0 += FA_TK) {
+        fw_scores(q, k, q_sh, k_sh, p_sh, b, hk, q0, nq, rows, k0, Sq, Skv,
+                  Hq, Hkv, D, g, causal, window, cap, scale);
+        // warp w takes rows 8w .. 8w+7, lane = key column
+        for (int i = 0; i < 8; ++i) {
+            const int r = warp * 8 + i;
+            const float x = p_sh[r * (FA_TK + 1) + lane];
+            float mx = x;
+            for (int off = 16; off > 0; off >>= 1)
+                mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+            const float m_prev = m_sh[r];
+            const float m_new = fmaxf(m_prev, mx);
+            float sum = expf(x - m_new);
+            for (int off = 16; off > 0; off >>= 1)
+                sum += __shfl_xor_sync(0xffffffffu, sum, off);
+            if (lane == 0) {
+                l_sh[r] = l_sh[r] * expf(m_prev - m_new) + sum;
+                m_sh[r] = m_new;
+            }
+        }
+    }
+    __syncthreads();
+    const size_t plane = (size_t)B * Sq * Hq;
+    for (int r = tid; r < rows; r += FA_THREADS) {
+        if (r / g >= nq) continue;
+        const size_t idx =
+            ((size_t)b * Sq + q0 + r / g) * Hq + hk * g + r % g;
+        ml[idx] = m_sh[r];
+        ml[plane + idx] = l_sh[r];
+    }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(FA_THREADS)
+flash_wide_out(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, const float* __restrict__ ml,
+               T* __restrict__ o, int B, int Sq, int Skv, int Hq, int Hkv,
+               int D, int g, int tq, int causal, int window, float cap,
+               float scale) {
+    extern __shared__ float smem[];
+    float* q_sh = smem;                         // [FA_R][FW_QS]
+    float* k_sh = q_sh + FA_R * FW_QS;          // [FA_TK][FW_QS]
+    float* p_sh = k_sh + FA_TK * FW_QS;         // [FA_R][FA_TK + 1]
+    float* m_sh = p_sh + FA_R * (FA_TK + 1);    // [FA_R] final max
+    float* l_sh = m_sh + FA_R;                  // [FA_R] final sum
+    float* v_sh = l_sh + FA_R;                  // [FA_TK][FW_DO]
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int b = blockIdx.x / Hkv, hk = blockIdx.x % Hkv;
+    const int q0 = blockIdx.y * tq;
+    const int nq = min(tq, Sq - q0);
+    const int rows = tq * g;
+    const int c0 = blockIdx.z * FW_DO;          // this block's columns
+    const size_t plane = (size_t)B * Sq * Hq;
+    for (int r = tid; r < FA_R; r += FA_THREADS) {
+        float m = FA_NEG, l = 1.f;
+        if (r < rows && r / g < nq) {
+            const size_t idx =
+                ((size_t)b * Sq + q0 + r / g) * Hq + hk * g + r % g;
+            m = ml[idx];
+            l = ml[plane + idx];
+        }
+        m_sh[r] = m;
+        l_sh[r] = l;
+    }
+    float acc[8][FW_DO / 32];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < FW_DO / 32; ++j) acc[i][j] = 0.f;
+    int kbeg, kend;
+    fw_key_range(q0, nq, Skv, causal, window, &kbeg, &kend);
+    for (int k0 = kbeg; k0 < kend; k0 += FA_TK) {
+        fw_scores(q, k, q_sh, k_sh, p_sh, b, hk, q0, nq, rows, k0, Sq, Skv,
+                  Hq, Hkv, D, g, causal, window, cap, scale);
+        // p = exp(s - m) with the final m, and this block's v columns
+        for (int e = tid; e < FA_R * FA_TK; e += FA_THREADS) {
+            const int r = e / FA_TK, c = e % FA_TK;
+            p_sh[r * (FA_TK + 1) + c] =
+                expf(p_sh[r * (FA_TK + 1) + c] - m_sh[r]);
+        }
+        for (int e = tid; e < FA_TK * FW_DO; e += FA_THREADS) {
+            const int j = e / FW_DO, d = c0 + e % FW_DO;
+            const int kj = k0 + j;
+            v_sh[e] = (kj < Skv && d < D)
+                ? fa_load(v + (((size_t)b * Skv + kj) * Hkv + hk) * D + d)
+                : 0.f;
+        }
+        __syncthreads();
+        // acc += p v: rows warp + 8 i, columns lane + 32 j
+        for (int c = 0; c < FA_TK; ++c) {
+            float vv[FW_DO / 32];
+#pragma unroll
+            for (int j = 0; j < FW_DO / 32; ++j)
+                vv[j] = v_sh[c * FW_DO + lane + 32 * j];
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+                const float p = p_sh[(warp + 8 * i) * (FA_TK + 1) + c];
+#pragma unroll
+                for (int j = 0; j < FW_DO / 32; ++j) acc[i][j] += p * vv[j];
+            }
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+        const int r = warp + 8 * i;
+        if (r >= rows || r / g >= nq) continue;
+        const int qi = q0 + r / g, h = hk * g + r % g;
+        const float den = fmaxf(l_sh[r], 1e-30f);
+        T* orow = o + (((size_t)b * Sq + qi) * Hq + h) * D;
+#pragma unroll
+        for (int j = 0; j < FW_DO / 32; ++j) {
+            const int d = c0 + lane + 32 * j;
+            if (d < D) fa_store(orow + d, acc[i][j] / den);
+        }
+    }
+}
+
+template <typename T>
+static int flash_wide_launch_t(const void* q, const void* k, const void* v,
+                               void* o, float* ml, int B, int Sq, int Skv,
+                               int Hq, int Hkv, int D, int causal,
+                               int window, float cap, float scale,
+                               cudaStream_t stream) {
+    const int g = Hq / Hkv;
+    const int tq = FA_R / g;
+    const int smem1 = fw_smem_floats(false) * (int)sizeof(float);
+    const int smem2 = fw_smem_floats(true) * (int)sizeof(float);
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_wide_stats<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem1);
+    if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(
+            flash_wide_out<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            smem2);
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid1(B * Hkv, (Sq + tq - 1) / tq);
+    flash_wide_stats<T><<<grid1, FA_THREADS, smem1, stream>>>(
+        (const T*)q, (const T*)k, ml, B, Sq, Skv, Hq, Hkv, D, g, tq, causal,
+        window, cap, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid2(B * Hkv, (Sq + tq - 1) / tq, (D + FW_DO - 1) / FW_DO);
+    flash_wide_out<T><<<grid2, FA_THREADS, smem2, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, ml, (T*)o, B, Sq, Skv, Hq, Hkv,
+        D, g, tq, causal, window, cap, scale);
+    return (int)cudaGetLastError();
+}
+
+// f32 (bf16 == 0) or bf16 q, k, v, o, contiguous; ml: f32 scratch of
+// 2 B Sq Hq floats; window <= 0: none; cap <= 0: none.  The wrapper has
+// checked Hq % Hkv == 0 and Hq / Hkv <= FA_R.
+extern "C" int flash_attention_wide_launch(const void* q, const void* k,
+                                           const void* v, void* o, void* ml,
+                                           int B, int Sq, int Skv, int Hq,
+                                           int Hkv, int D, int causal,
+                                           int window, float cap, float scale,
+                                           int bf16, void* stream) {
+    cudaStream_t s = (cudaStream_t)stream;
+    if (bf16)
+        return flash_wide_launch_t<__nv_bfloat16>(
+            q, k, v, o, (float*)ml, B, Sq, Skv, Hq, Hkv, D, causal, window,
+            cap, scale, s);
+    return flash_wide_launch_t<float>(q, k, v, o, (float*)ml, B, Sq, Skv, Hq,
+                                      Hkv, D, causal, window, cap, scale, s);
 }

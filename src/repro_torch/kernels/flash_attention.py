@@ -1,5 +1,6 @@
 """K9 wrapper: fused attention forward on the card
-(csrc/flash_attention.cu), in two forms chosen by the input type alone.
+(csrc/flash_attention.cu), in three forms: two for head dims up to 256,
+chosen by the input type, and a wide form for any head dim past 256.
 
 Replaces ``src/repro/kernels/flash_attention.py:flash_attention_pallas``
 (``_flash_fwd_kernel``).  Bound on this card: operations, 4 D per
@@ -17,15 +18,22 @@ the causal wedge or the window.
 - float32 (``flash_attention_f32``): CUDA cores in f32, blocks of 64
   rows, key tiles of 32 in shared memory; the f32 tolerance (1e-4) is
   below what bf16 or TF32 products reach.
+- D > 256, float32 or bfloat16 (``flash_attention_wide``, one count per
+  call of its two kernels): both forms above keep a block's rows in
+  shared memory sized by D, so past 256 a two-pass form runs in f32 on
+  CUDA cores with shared memory fixed in D: the first pass takes each
+  row's softmax max and sum over the keys, the second recomputes the
+  scores and accumulates P V for its own 128 output columns.  bf16
+  inputs are read as bf16 and the output rounded to bf16 once.  No
+  configuration reaches it (gemma2-2b's d_head 256 is the largest).
 
 The wrapper takes what the kernels do not, exactly: a group of more than
 ``MAX_GROUP`` query heads per kv head runs in launches of at most that
 many heads of each group; in bfloat16, a head dim that is not a multiple
 of 8 (the TMA's row stride) runs on copies zero-padded to the next
 multiple of 8, with the true ``D ** -0.5`` scale, and the output is cut
-back; storage that is not 16-byte aligned runs on an aligned copy.  Head
-dims past 256 are refused (a block keeps its query rows in shared
-memory).
+back; storage that is not 16-byte aligned runs on an aligned copy (neither
+applies to the wide form, which reads its inputs element by element).
 
 Forward only: inputs that require a gradient are refused (training,
 ROADMAP Queue 1 item 13(b), is to recompute through the plain version,
@@ -45,6 +53,7 @@ Tensor = torch.Tensor
 # query rows (query, head) of one block: a launch folds at most this many
 # query heads of a kv head (g = Hq / Hkv)
 MAX_GROUP = 64
+# the largest head dim of the f32 and bf16 forms; past it the wide form
 MAX_HEAD_DIM = 256
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -79,9 +88,6 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
                          f"{tuple(k.shape)} and {tuple(v.shape)}")
     if Hkv == 0 or Hq % Hkv:
         raise ValueError(f"Hq = {Hq} is not a multiple of Hkv = {Hkv}")
-    if D > MAX_HEAD_DIM:
-        raise ValueError(f"head dim {D} > {MAX_HEAD_DIM}: the kernel keeps "
-                         "a block's query rows in shared memory")
     if window is not None and window < 1:
         raise ValueError(f"window = {window}: expected None or >= 1")
     if score_cap is not None and not score_cap > 0:
@@ -97,8 +103,8 @@ def _attend(q: Tensor, k: Tensor, v: Tensor, out: Tensor, causal: bool,
             window: int | None, score_cap: float | None,
             scale: float) -> None:
     """Write the attention of checked inputs into ``out``, splitting the
-    query-head groups and padding or copying bf16 operands as the kernels
-    need."""
+    query-head groups, running the wide form past ``MAX_HEAD_DIM`` and
+    padding or copying bf16 operands as the other forms need."""
     B, Sq, Hq, D = q.shape
     Hkv = k.shape[2]
     g = Hq // Hkv
@@ -117,6 +123,18 @@ def _attend(q: Tensor, k: Tensor, v: Tensor, out: Tensor, causal: bool,
             o5[:, :, :, j0:j1] = os_.view(B, Sq, Hkv, j1 - j0, D)
         return
     bf16 = q.dtype == torch.bfloat16
+    if D > MAX_HEAD_DIM:
+        # each row's softmax max and sum, from the first pass to the second
+        ml = torch.empty((2, B, Sq, Hq), dtype=torch.float32,
+                         device=q.device)
+        _build.check(_build.library().flash_attention_wide_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            ml.data_ptr(), B, Sq, k.shape[1], Hq, Hkv, D,
+            int(bool(causal)), 0 if window is None else int(window),
+            0.0 if score_cap is None else float(score_cap), float(scale),
+            int(bf16), stream_ptr(q.device)), "flash_attention_wide")
+        _build.COUNTS["flash_attention_wide"] += 1
+        return
     if bf16 and D % 8:
         # zero columns add nothing to q k^T; v's zero columns are cut off
         pad = (0, -D % 8)

@@ -3,13 +3,16 @@
 
 Replaces ``src/repro/kernels/lb_enhanced.py:lb_enhanced_pallas``
 (``_lb_enhanced_kernel``, ``_lb_enhanced_kernel_live``).  The cascade's
-``bands`` tier runs it with ``bands_only=True``: 4 bytes written and ~130
-FP32 operations per pair at V = 4, so it is operation-bound, and the
-design gives each (query, candidate) its own thread reading only the
-first and last ``nb`` columns.  The full form (the ``enhanced_dense``
-tier) adds the Keogh bridge, with the query and envelope tiles staged
-through shared memory.  ``live`` (``(C,)``) turns dead candidates into
-``-inf`` columns; an all-dead tile of 32 candidates skips its compute.
+``bands`` tier runs it with ``bands_only=True``, once per tier call over
+the whole store: 4 bytes written and ~71 FP32 operations per pair at
+V = 4.  That form stages the first and last ``nb`` columns of a block's
+128 candidates and 32 queries in shared memory, keeps each candidate's
+band values in registers and writes its column coalesced; it is bit-equal
+to ``ref.lb_enhanced_ref``.  The full form (the ``enhanced_dense`` tier)
+gives each pair a thread and adds the Keogh bridge, with the query and
+envelope tiles staged through shared memory.  ``live`` (``(C,)``) turns
+dead candidates into ``-inf`` columns; an all-dead tile of candidates (128
+in the bands form, 32 in the full form) skips its compute.
 """
 
 from __future__ import annotations

@@ -2,17 +2,20 @@
 (csrc/sketch.cu).
 
 Replaces ``src/repro/kernels/sketch.py:sketch_bound_pallas``
-(``_sketch_kernel``).  Bound on this card: the ``4 Q N`` bytes of output
-against ~6 FP32 operations per (query, candidate, segment), the same
-order at S = 16 (~64 MB and ~1.6 GFLOP at Q = 256, N = 65536, ~20 us
-either way).  Design: one thread per candidate column over a tile of 32
-queries whose ``(32, S)`` means and the S weights sit in shared memory;
-each thread reads its candidate's int8 cells with 16-byte loads, converts
-them in registers and writes its column coalesced.  A second grid
-dimension covers any Q (the JAX op's Q > 4096 fallback has no
-counterpart here).  The segments are summed in the plain version's order
-with unfused products, so the kernel is bit-equal to
-``ref.sketch_bound_scaled``.  Raises for S > 256.
+(``_sketch_kernel``).  Bound on this card: 7 FP32 instructions per
+(query, candidate, segment), none fused (the arithmetic is held bit-equal
+to the plain version), so the kernel is bound by the FP32 issue rate; the
+``4 Q N`` output bytes weigh less at S = 16.  Design: one thread per
+candidate column over a tile of 16 queries whose ``(16, S)`` means and
+the S weights sit in shared memory; each thread reads its candidate's
+int8 cells with 16-byte loads and converts them in registers.  A full
+tile (16 queries, S a multiple of 16, aligned storage) runs with no
+predicate in its unrolled loops, the chunk's weights in registers and
+the queries read as float4; a ragged tile runs a predicated body.  Each
+thread writes its column coalesced.  A second grid dimension covers any
+Q (the JAX op's Q > 4096 fallback has no counterpart here).  The segments
+are summed in the plain version's order with unfused products, so the
+kernel is bit-equal to ``ref.sketch_bound_scaled``.  Raises for S > 256.
 """
 
 from __future__ import annotations

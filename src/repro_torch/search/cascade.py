@@ -80,7 +80,10 @@ class CascadeConfig:
       use_kim: include the O(1) Kim tier in the default plans.
       use_sketch: put the tier-(-1) sketch tier first in the default
         plans; it pays only on an index built with sketch features.
-      candidate_chunk: candidates (or packed slots) per kernel call.
+      candidate_chunk: candidates per call of the plain cross-block
+        tiers, and packed slots per call of the pairwise tiers.  The
+        card's cross-block kernel (K2) ignores it and takes the whole
+        store in one launch, as K4 ignores ``tile_p``.
       use_kernels: route the tiers and DTW through ``kernels/ops.py``
         (hand-written kernels on the card, plain versions on the CPU), or
         ``False`` for the plain versions everywhere; the counterpart of
@@ -154,13 +157,22 @@ def lb_kim_tier(q: Tensor, index: DTWIndex) -> Tensor:
     return base + torch.maximum(t_max, t_min)
 
 
+def _kernel_route(q: Tensor, cfg: CascadeConfig) -> bool:
+    """Whether the cross-block tiers launch K2 (CUDA tensors with
+    ``use_kernels``) rather than run the plain version."""
+    return cfg.use_kernels and q.device.type == "cuda"
+
+
 def _chunked_columns(q: Tensor, index: DTWIndex, cfg: CascadeConfig,
                      bands_only: bool, live: Tensor | None) -> Tensor:
-    """(Q, N) cross-block LB_ENHANCED over candidate chunks of
-    ``cfg.candidate_chunk``; ``live`` (``(N,)``) gives dead candidates
-    ``-inf``."""
+    """(Q, N) cross-block LB_ENHANCED; ``live`` (``(N,)``) gives dead
+    candidates ``-inf``.  The kernel route makes one call over the whole
+    store (K2 writes the matrix directly); the plain route takes
+    ``cfg.candidate_chunk`` candidates a call, since its full form
+    materialises ``(Q, C, L)`` intermediates.  Results are per pair, so
+    the two agree whatever the chunk."""
     n = index.n
-    chunk = min(cfg.candidate_chunk, n)
+    chunk = n if _kernel_route(q, cfg) else min(cfg.candidate_chunk, n)
     lb_fn = cfg.lb_fn()
     outs = []
     for s in range(0, n, chunk):

@@ -12,7 +12,9 @@ LB_ENHANCED forms and LB_Keogh agree to rtol 1e-5, atol 1e-6 (their
 L-term sums run in another order).  Flash attention (K9) agrees with its
 plain version to rtol 1e-4, atol 1e-5 in float32 (its CUDA-core form)
 and to rtol 1e-2, atol 1e-2 in bfloat16 (its tensor-core form: P is
-rounded to bf16 for the PV product, and the outputs are bf16); the
+rounded to bf16 for the PV product, and the outputs are bf16); its wide
+form past D = 256 to the same tolerances by input type, bf16 also to a
+relative RMS error of 1e-2; the
 selective scan (K10) bit for bit (its N-sum keeps the plain version's
 order; where the tests below say rtol 1e-5, atol 1e-6, they hold the
 sweep of earlier slices to that bound too).
@@ -361,7 +363,8 @@ def test_wrappers_count_launches_and_refuse_bad_input(dev):
                                "dtw_band_step": 0,
                                "dtw_band_step_block": 0, "sketch_bound": 0,
                                "lb_keogh": 0, "flash_attention": 0,
-                               "flash_attention_f32": 0, "mamba_scan": 0}
+                               "flash_attention_f32": 0,
+                               "flash_attention_wide": 0, "mamba_scan": 0}
     with pytest.raises(ValueError, match="float32"):
         dtw_band_cuda(x.double(), x.double(), 3)
     with pytest.raises(ValueError, match="contiguous"):
@@ -555,9 +558,12 @@ def test_lm_kernel_wrappers_count_and_refuse(dev):
         flash_attention_cuda(q.requires_grad_(), kv, kv)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         flash_attention_cuda(q.detach().half(), kv.half(), kv.half())
-    with pytest.raises(ValueError, match="head dim"):
-        big = _rand(dev, 38, 1, 4, 2, 320)
-        flash_attention_cuda(big, big, big)
+    # a head dim past 256 runs the wide form under its own count
+    big = _rand(dev, 38, 1, 4, 2, 320)
+    torch.testing.assert_close(flash_attention_cuda(big, big, big),
+                               ref.flash_attention_ref(big, big, big),
+                               rtol=1e-4, atol=1e-5)
+    assert _build.counts()["flash_attention_wide"] == 1
     with pytest.raises(ValueError, match="gradient"):
         mamba_scan_cuda(args[0].requires_grad_(), *args[1:])
     wide = [args[0].detach(), args[1], -_rand(dev, 42, 8, 257).abs(),
@@ -623,6 +629,139 @@ def test_flash_attention_wrapper_repairs(dev, case):
     torch.testing.assert_close(got.float(), want.float(), **tol)
     name = "flash_attention_f32" if dt == torch.float32 else "flash_attention"
     assert _build.counts()[name] == (2 if g > 64 else 1)
-    with pytest.raises(ValueError, match="head dim"):
-        big = _rand(dev, 38, 1, 4, 2, 264).to(dt)
-        flash_attention_cuda(big, big, big)
+    # past D = 256 the wide form runs (no padding, any alignment)
+    big = _rand(dev, 38, 1, 4, 2, 264).to(dt)
+    got = flash_attention_cuda(big, big, big, True, 16, 30.0)
+    torch.testing.assert_close(
+        got.float(), ref.flash_attention_ref(big, big, big, True, 16,
+                                             30.0).float(), **tol)
+    assert _build.counts()["flash_attention_wide"] == 1
+
+
+# ---- slice 7: K2 over the whole store, K7's full tiles, K9's wide form ---
+
+def _lb_plain_cols(q, c, u, lo, w, v, live, bands_only, chunk=512):
+    """The plain version over candidate chunks (its full form materialises
+    (Q, C, L) intermediates); per pair, so equal to one call."""
+    outs = [ref.lb_enhanced_ref(
+        q, c[s:s + chunk], u[s:s + chunk], lo[s:s + chunk], w, v,
+        live=None if live is None else live[s:s + chunk],
+        bands_only=bands_only) for s in range(0, c.shape[0], chunk)]
+    return torch.cat(outs, dim=1)
+
+
+@pytest.mark.parametrize("Q,C,L,w,v", [
+    (257, 16384 + 37, 512, 51, 4),          # the main store, ragged
+    (16, 1024 + 5, 17984, 17984, 4),        # the long path, w = L
+    (33, 3000, 512, 51, 8),                 # v = 8: nb = 8
+    (40, 700, 64, 0, 4),                    # w = 0: nb = 0
+    (20, 900, 30, 30, 20),                  # nb = 15: the generic form
+])
+@pytest.mark.parametrize("mask", ["none", "dead_tiles"])
+def test_lb_enhanced_whole_store_bit_equal(dev, Q, C, L, w, v, mask):
+    """K2 at whole-store shapes: bands-only bit-equal to the plain version
+    (same -inf positions), the full form to rtol 1e-5, atol 1e-6; with a
+    mask, the first two 128-candidate tiles all dead, the third holding
+    one survivor, the rest random."""
+    q, c = _rand(dev, 80, Q, L), _rand(dev, 81, C, L)
+    u, lo = ref.envelope_ref(c, w)
+    live = None
+    if mask == "dead_tiles":
+        live = _rand(dev, 82, C) > -0.5
+        live[:384] = False
+        live[300] = True                         # a lone survivor
+    for bands_only in (True, False):
+        got = lb_enhanced_cuda(q, c, u, lo, w, v, live=live,
+                               bands_only=bands_only)
+        want = _lb_plain_cols(q, c, u, lo, w, v, live, bands_only)
+        _check(got, want, exact=bands_only)
+
+
+def test_bands_tier_is_one_launch_per_call(dev):
+    """The kernel route of the cross-block tiers launches K2 once over
+    the store, whatever ``candidate_chunk``; the matrix equals the CPU's
+    chunked plain route bit for bit (bands) or to rtol 1e-5 (full)."""
+    from repro_torch.search import cascade
+
+    ds = make_dataset(n_classes=4, n_train_per_class=300,
+                      n_test_per_class=4, length=64, seed=6)
+    w = 6
+    idx = build_index(ds.x_train, w, ds.y_train, device=dev)
+    cpu_idx = build_index(ds.x_train, w, ds.y_train, device="cpu")
+    cfg = CascadeConfig(w=w, v=4, candidate_chunk=64)
+    q = torch.as_tensor(ds.x_test, dtype=torch.float32)
+    live = torch.rand(idx.n, generator=torch.Generator().manual_seed(2)) > .3
+    for tier, exact in ((cascade.bands_prefilter, True),
+                        (cascade.enhanced_all_pairs, False)):
+        for lv in (None, live):
+            _build.reset_counts()
+            got = tier(q.to(dev), idx, cfg,
+                       live=None if lv is None else lv.to(dev))
+            assert _build.counts()["lb_enhanced"] == 1
+            want = tier(q, cpu_idx, cfg, live=lv)
+            _check(got.cpu(), want, exact=exact)
+
+
+@pytest.mark.parametrize("S", [1, 7, 16, 40, 256])
+def test_sketch_bound_full_and_ragged_tiles_bit_equal(dev, S):
+    """K7 at Q = 257 (sixteen full query tiles and a ragged one), N = 65541,
+    bit-equal to the plain version, on aligned storage and on int8
+    storage one byte off alignment (the byte path)."""
+    Q, N = 257, 65541
+    g = torch.Generator().manual_seed(S)
+    qs = (torch.randn(Q, S, generator=g) * 60).to(dev)
+    lo = torch.randint(-127, 100, (N, S), generator=g, dtype=torch.int8)
+    hi = torch.clamp(lo.to(torch.int32) + torch.randint(
+        0, 40, (N, S), generator=g), max=127).to(torch.int8)
+    lo, hi = lo.to(dev), hi.to(dev)
+    wseg = (torch.rand(S, generator=g) * 0.3).to(dev)
+    want = ref.sketch_bound_scaled(qs, lo, hi, wseg)
+    _build.reset_counts()
+    _check(sketch_bound_cuda(qs, lo, hi, wseg), want, exact=True)
+    assert _build.counts()["sketch_bound"] == 1
+    off = []
+    for x in (lo, hi):
+        buf = torch.zeros(N * S + 1, dtype=torch.int8, device=dev)[1:]
+        buf.copy_(x.flatten())
+        off.append(buf.view(N, S))
+    assert all(x.data_ptr() % 16 for x in off)
+    _check(sketch_bound_cuda(qs, off[0], off[1], wseg), want, exact=True)
+
+
+# B, Sq, Skv, Hq, Hkv, D, causal, window, cap: D past 256, g in {1, 2, 8},
+# causal and not, window, cap, ragged and unequal Sq / Skv
+WIDE_SWEEP = [
+    (2, 40, 40, 2, 2, 257, True, None, None),
+    (1, 77, 77, 8, 4, 320, True, 16, 30.0),
+    (1, 100, 70, 8, 1, 512, False, None, 50.0),
+    (1, 33, 90, 2, 1, 1024, False, 20, None),
+    (2, 65, 65, 16, 2, 320, True, None, 50.0),
+    (1, 1, 17, 8, 4, 512, False, None, None),
+]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,D,causal,window,cap", WIDE_SWEEP)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_wide_form(dev, B, Sq, Skv, Hq, Hkv, D, causal,
+                                   window, cap, dtype):
+    """K9 past D = 256 in its wide form against the plain version: f32 to
+    rtol 1e-4, atol 1e-5; bf16 to rtol 1e-2, atol 1e-2 and a relative RMS
+    error of 1e-2.  One ``flash_attention_wide`` count, no other."""
+    q = _rand(dev, 90, B, Sq, Hq, D).to(dtype)
+    k = _rand(dev, 91, B, Skv, Hkv, D).to(dtype)
+    v = _rand(dev, 92, B, Skv, Hkv, D).to(dtype)
+    _build.reset_counts()
+    got = flash_attention_cuda(q, k, v, causal, window, cap)
+    counts = _build.counts()
+    assert counts["flash_attention_wide"] == 1
+    assert counts["flash_attention"] == counts["flash_attention_f32"] == 0
+    want = ref.flash_attention_ref(q, k, v, causal, window, cap)
+    assert got.dtype == dtype and got.shape == want.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    else:
+        g32, w32 = got.float(), want.float()
+        torch.testing.assert_close(g32, w32, rtol=1e-2, atol=1e-2)
+        rel = ((g32 - w32).square().mean().sqrt()
+               / w32.square().mean().sqrt()).item()
+        assert rel <= 1e-2
