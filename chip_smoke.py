@@ -7,11 +7,12 @@
 
 1. prints the card (``nvidia-smi`` name and power limit) and builds the
    nine CUDA sources of K1-K10 from ``src/repro_torch/csrc`` (``nvcc``,
-   ``sm_90a``, one process per source), compiling the three redesigned
+   ``sm_90a``, one process per source), compiling the five redesigned
    sources once more with ``-Xptxas -v`` alongside; prints a ``ptxas:``
-   line (registers, spill bytes and resident warps per SM of each
-   instantiation of K4's and K6's warp form, of K10 and of K7; any
-   spill fails);
+   line (registers and spill bytes of each instantiation of K4's and K6's
+   warp form, of K10 and its wide-state form, of K7, of K8 and of K9's
+   two wide forms, and the resident warps per SM of K4's, K6's, K10's and
+   K7's; any spill fails);
 2. drives the main path once at full size -- ``build_index`` ->
    ``classify`` (which runs ``nn_search``, guards on by default) on
    N = 16384 store series of length L = 512 (w = 51, V = 4, k = 1,
@@ -101,11 +102,16 @@
    f32 and 1e-2 in bf16, where the relative RMS error must also stay
    within 1e-2; K9 also at the shapes its wrapper repairs (g = 96 in f32
    and bf16, bf16 D = 100, bf16 storage off 16-byte alignment) and its
-   wide form (D > 256, two passes in f32) at D = 320 and 512 in f32 and
-   bf16 against the plain version, SDPA at D = 512 as the library time,
-   and over a sweep of D in {257, 320, 512, 1024}; K10 at a
-   layer of the falcon prefill and over a sweep (N in {4, 16, 17, 32, 64,
-   128, 256}, ragged S and C, nonzero h0), bit-equal;
+   wide forms: the one-pass split-D cluster form (256 < D <= 1024) at
+   D = 320 and 512 in f32 and bf16 against the plain version, SDPA at
+   D = 512 as the library time, and over a sweep of D in {257, 320, 512,
+   1024}, the two-pass form at D = 1100 (each call one launch of its
+   form); K10 at a layer of the falcon prefill and over a sweep (N in {4,
+   16, 17, 32, 64, 128, 256}, ragged S and C, nonzero h0), bit-equal, and
+   its wide-state form at N in {257, 512, 1024} and at B = 4, S = 2048,
+   C = 8192, N = 512, bit-equal; K8 also over tiles and chunks cut
+   ragged, at L = 17984, on random walks and on envelopes with lo > u and
+   +-inf bounds, with its issue floor;
 9. prints one ``{"kernels": [...]}`` line and, last, the device line
    ``{"ok": true, "device": {...}}``.
 
@@ -207,6 +213,8 @@ FLASH_SWEEP = [
 MAMBA_SWEEP = [(2, 33, 70, 4), (3, 100, 300, 16), (1, 17, 129, 64),
                (2, 1, 5, 16), (1, 50, 128, 32), (2, 40, 33, 17),
                (1, 70, 40, 128), (1, 40, 33, 256)]
+# K10's wide-state form: N in {257, 512, 1024}, ragged S and C
+MAMBA_WIDE_SWEEP = [(1, 40, 33, 257), (2, 37, 70, 512), (1, 20, 9, 1024)]
 
 
 class SmokeFailure(Exception):
@@ -215,14 +223,27 @@ class SmokeFailure(Exception):
 
 # ptxas reports of the redesigned kernels: the source, and for each
 # instantiation (mangled-name pattern) the record it belongs to and a label
-PTXAS_SOURCES = ("dtw_band.cu", "mamba_scan.cu", "sketch.cu")
+PTXAS_SOURCES = ("dtw_band.cu", "mamba_scan.cu", "sketch.cu", "lb_keogh.cu",
+                 "flash_attention.cu")
 PTXAS_KERNELS = [
     (r"_Z20dtw_band_warp_kernelILi(\d+)ELb0E", "dtw_band", "M={}"),
     (r"_Z20dtw_band_warp_kernelILi(\d+)ELb1E", "dtw_band_step", "M={}"),
     (r"_Z15dtw_band_kernelILb0ELb0E", "dtw_band_block", "block"),
     (r"_Z15dtw_band_kernelILb1ELb0E", "dtw_band_step_block", "block"),
-    (r"_Z17mamba_scan_kernelILi(\d+)E", "mamba_scan", "G={}"),
+    (r"_Z17mamba_scan_kernelILi(\d+)ELb0E", "mamba_scan", "G={}"),
+    (r"_Z17mamba_scan_kernelILi(\d+)ELb1E", "mamba_scan_wide", "G={}"),
     (r"_Z19sketch_bound_kernel", "sketch_bound", "kernel"),
+    (r"_Z15lb_keogh_kernel", "lb_keogh", "kernel"),
+    (r"_ZN2fw17flash_wide_kernelIfE", "flash_attention_wide", "float32"),
+    (r"_ZN2fw17flash_wide_kernelI13__nv_bfloat16E", "flash_attention_wide",
+     "bfloat16"),
+    (r"_Z16flash_wide_statsIfE", "flash_attention_wide_2pass",
+     "stats float32"),
+    (r"_Z16flash_wide_statsI13__nv_bfloat16E", "flash_attention_wide_2pass",
+     "stats bfloat16"),
+    (r"_Z14flash_wide_outIfE", "flash_attention_wide_2pass", "out float32"),
+    (r"_Z14flash_wide_outI13__nv_bfloat16E", "flash_attention_wide_2pass",
+     "out bfloat16"),
 ]
 
 
@@ -294,7 +315,7 @@ def ptxas_report(procs) -> dict:
             m = re.search(r"Used (\d+) registers", line)
             if m:
                 slot["registers"] = int(m.group(1))
-    for name in ("dtw_band", "dtw_band_step", "mamba_scan", "sketch_bound"):
+    for name in {name for _, name, _ in PTXAS_KERNELS}:
         check(name in rep, f"ptxas reported no kernel of {name}")
         for label, slot in rep[name]["ptxas"].items():
             check(slot.get("spill_bytes") == 0,
@@ -306,7 +327,8 @@ def occupancy_report(rep: dict) -> dict:
     """Add each redesigned instantiation's resident warps per SM (CUDA's
     occupancy calculator at its launch's block size and shared memory)
     to a ``ptxas_report``: K4's and K6's warp form at the widest band of
-    each M, K10 at N = 8 G, K7 at the sketch path's S = 16."""
+    each M, K10 at N = 8 G (its wide-state form past 256), K7 at the
+    sketch path's S = 16."""
     from repro_torch.kernels import _build
 
     lib = _build.library()
@@ -317,6 +339,7 @@ def occupancy_report(rep: dict) -> dict:
                 (32 * m - 1) // 2, per_step)
     for g in (1, 2, 4, 8, 16, 32):
         got["mamba_scan", f"G={g}"] = lib.mamba_scan_occupancy(8 * g)
+    got["mamba_scan_wide", "G=32"] = lib.mamba_scan_occupancy(257)
     got["sketch_bound", "kernel"] = lib.sketch_bound_occupancy(16)
     for (name, label), warps in got.items():
         check(warps > 0, f"{name} {label}: occupancy query failed ({warps})")
@@ -1569,6 +1592,12 @@ def kernel_phases(torch, dev, recs, windows, sk_index, sk_queries,
         full_form_max_abs_err=err_full,
         full_form_ms=time_ms(lambda: lb_enhanced_cuda(q, c, u, lo, w2, v),
                              20),
+        # q, c, u and lo read once, the matrix written once, against the
+        # bands' operations plus K8's 5 per column of the bridge and one
+        # add a pair
+        **dict(zip(("full_form_bound_ms", "full_form_bound_by"), bound(
+            4.0 * (Q * L + 3 * C * L) + 4.0 * Q * C,
+            float(band_ops(nb) + 5 * (L - 2 * nb) + 1) * Q * C))),
         long_path_shape=f"Q={Ql} C={Cl} L={Ll} w={wl} v={vl} bands_only",
         long_path_bound_ms=bound(4.0 * Ql * Cl + 8.0 * nbl * (Ql + Cl),
                                  float(band_ops(nbl)) * Ql * Cl)[0],
@@ -1970,27 +1999,61 @@ def kernel_phases(torch, dev, recs, windows, sk_index, sk_queries,
     C = uk.shape[0]
     err = compare("lb_keogh", lb_keogh_cuda(qk, uk, lk),
                   ref.lb_keogh_ref(qk, uk, lk), exact=False)
+    # ragged against the 128 x 64 output tile and the 32-column chunks,
+    # full interior tiles, L = 17984
     for Qs, Cs, Ls, ws in [(3, 37, 33, 8), (9, 70, 64, 1), (33, 31, 100, 0),
-                           (2, 65, 9, 9), (40, 600, 512, 51)]:
+                           (2, 65, 9, 9), (40, 600, 512, 51),
+                           (129, 65, 33, 4), (256, 128, 512, 51),
+                           (5, 70, 17984, 179)]:
         qx, cx = randn(Qs, Ls), randn(Cs, Ls)
         ux, lx = ref.envelope_ref(cx, ws)
         compare(f"lb_keogh sweep {(Qs, Cs, Ls, ws)}",
                 lb_keogh_cuda(qx, ux, lx), ref.lb_keogh_ref(qx, ux, lx),
                 exact=False)
-    # per (q, c, i): two subtracts, two maxes and one fused multiply-add
-    # (two operations) that squares the excess into the sum: at most one
-    # of q - u and lo - q is positive, so one square serves both
+    # random walks of scale ~100, then envelopes with lo > u and +-inf
+    # bounds (the chunks that hold them run the reference's arithmetic)
+    odd_err = 0.0
+    for Qs, Cs, Ls, ws in [(130, 70, 300, 10), (7, 200, 17984, 50)]:
+        qx = torch.randn(Qs, Ls, generator=gen).cumsum(1).to(dev) * 10
+        cx = torch.randn(Cs, Ls, generator=gen).cumsum(1).to(dev) * 10
+        ux, lx = ref.envelope_ref(cx, ws)
+        compare(f"lb_keogh random walks {(Qs, Cs, Ls, ws)}",
+                lb_keogh_cuda(qx, ux, lx), ref.lb_keogh_ref(qx, ux, lx),
+                exact=False)
+        ux[3, 5] = lx[3, 5] - 25.0
+        lx[4, 7:40] = ux[4, 7:40] + 1.0
+        ux[5, 100:110] = float("inf")
+        lx[6, :Ls // 2] = float("-inf")
+        odd_err = max(odd_err, compare(
+            f"lb_keogh lo > u and +-inf envelopes {(Qs, Cs, Ls, ws)}",
+            lb_keogh_cuda(qx, ux, lx), ref.lb_keogh_ref(qx, ux, lx),
+            exact=False))
+    # the least work a term needs, the clamp form's: a max, a min, a
+    # subtract and one fused multiply-add (two operations) that squares
+    # the excess into the sum, 5 operations per (q, c, i)
     bms, by = bound(4.0 * Q * L + 8.0 * C * L + 4.0 * Q * C,
-                    6.0 * Q * C * L)
+                    5.0 * Q * C * L)
+    # the same 4 instructions a term at the FP32 issue rate: 128 lanes an
+    # SM a clock at the card's maximum SM clock; the 67 TFLOP/s peak
+    # counts an FMA as two operations, so it overstates this mix
+    props = torch.cuda.get_device_properties(dev)
+    issue_ms = 4.0 * Q * C * L / (props.multi_processor_count * 128
+                                  * max_sm_clock_hz()) * 1e3
     out.append(dict(
         name="lb_keogh", route="cuda",
         source="src/repro_torch/csrc/lb_keogh.cu",
         replaces="src/repro/kernels/lb_keogh.py:48",
         **path_launches("lb_keogh"), max_abs_err=err,
-        ms=time_ms(lambda: lb_keogh_cuda(qk, uk, lk), 20),
+        ms=time_ms(lambda: lb_keogh_cuda(qk, uk, lk), 50),
         plain_ms=time_ms(lambda: ref.lb_keogh_ref(qk, uk, lk), 3),
         bound_ms=bms, bound_by=by, library_ms=None,
-        shape=f"Q={Q} C={C} L={L} w={main_idx.w}"))
+        issue_floor_ms=issue_ms,
+        form="clamp form d = q - min(max(q, lo), u), fma(d, d, acc); a "
+             "chunk with !(lo <= u) runs the reference's arithmetic; 128 x "
+             "64 output tiles, 8 x 4 a thread, 32-column chunks by cp.async",
+        odd_envelopes_max_abs_err=odd_err,
+        shape=f"Q={Q} C={C} L={L} w={main_idx.w}",
+        **ptxas.get("lb_keogh", {})))
 
     return out
 
@@ -2004,8 +2067,9 @@ def lm_kernel_phases(torch, dev, windows, lm_recs, ptxas):
     import torch.nn.functional as F
 
     from repro_torch.kernels import _build, ref
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
-    from repro_torch.kernels.mamba_scan import mamba_scan_cuda
+    from repro_torch.kernels.flash_attention import (MAX_WIDE_ONE_PASS,
+                                                     flash_attention_cuda)
+    from repro_torch.kernels.mamba_scan import MAX_STATE, mamba_scan_cuda
 
     def path_launches(kname: str) -> dict:
         per = {f"{path}_path_launches": counts[kname]
@@ -2174,44 +2238,50 @@ def lm_kernel_phases(torch, dev, windows, lm_recs, ptxas):
     # a causal prefill of gemma2-2b's geometry otherwise (B = 1, S = 2048,
     # Hq = 8, Hkv = 4) at D = 320 and 512 in both types with the cap, and
     # at D = 512 in f32 without it, the function SDPA also computes
+    def wide_run(xs, causal, win, cap, label):
+        """One call, which must be one launch of the form that takes its
+        head dim, and its check against the plain version."""
+        _build.reset_counts()
+        got9 = flash_attention_cuda(*xs, causal, win, cap)
+        name9 = "flash_attention_wide" if xs[0].shape[3] <= \
+            MAX_WIDE_ONE_PASS else "flash_attention_wide_2pass"
+        got_counts = {k: v for k, v in _build.counts().items() if v}
+        check(got_counts == {name9: 1},
+              f"K9 {label}: launches {got_counts}, expected one of {name9}")
+        return k9_compare(f"{name9} {label}", got9,
+                          ref.flash_attention_ref(*xs, causal, win, cap))
+
     wide_err = {}
     wide_ms = {}
     for Dw in (320, 512):
         xw = [randn(1, 2048, H, Dw) for H in (8, 4, 4)]
         for dts in ("float32", "bfloat16"):
             xs = [x.to(getattr(torch, dts)) for x in xw]
-            _build.reset_counts()
-            got9 = flash_attention_cuda(*xs, True, None, 50.0)
-            check(_build.counts()["flash_attention_wide"] == 1
-                  and _build.counts()["flash_attention"] == 0
-                  and _build.counts()["flash_attention_f32"] == 0,
-                  f"K9 D={Dw} {dts}: not one launch of the wide form")
-            r = k9_compare(f"flash_attention_wide D={Dw} {dts}", got9,
-                           ref.flash_attention_ref(*xs, True, None, 50.0))
+            r = wide_run(xs, True, None, 50.0, f"D={Dw} {dts}")
             wide_err[f"D{Dw}_{dts}"] = r["max_abs_err"] \
                 if dts == "float32" else r["rel_rms_err"]
             wide_ms[f"D{Dw}_{dts}"] = time_ms(
                 lambda: flash_attention_cuda(*xs, True, None, 50.0), 3,
                 warmup=1)
     # a sweep past D = 256: ragged and unequal Sq / Skv, g in {1, 2, 8},
-    # causal and not, window, cap, each in f32 and bf16
+    # causal and not, window, cap, each in f32 and bf16; D = 1100 past the
+    # one-pass form's 1024 runs the two-pass form
     for (Bs, Sq, Skv, Hq, Hkv, D, causal, win, cap) in [
             (2, 40, 40, 2, 2, 257, True, None, None),
             (1, 77, 77, 8, 4, 320, True, 16, 30.0),
             (1, 100, 70, 8, 1, 512, False, None, 50.0),
-            (1, 33, 90, 2, 1, 1024, False, 20, None)]:
+            (1, 33, 90, 2, 1, 1024, False, 20, None),
+            (2, 65, 65, 16, 2, 320, True, None, 50.0),
+            (1, 30, 45, 2, 1, 1100, True, 20, 50.0)]:
         xw = [randn(Bs, Sq, Hq, D), randn(Bs, Skv, Hkv, D),
               randn(Bs, Skv, Hkv, D)]
         for dts in ("float32", "bfloat16"):
             xs = [x.to(getattr(torch, dts)) for x in xw]
-            k9_compare(f"flash_attention_wide sweep {(Bs, Sq, Skv, Hq, Hkv, D)}"
-                       f" {dts}", flash_attention_cuda(*xs, causal, win, cap),
-                       ref.flash_attention_ref(*xs, causal, win, cap))
+            wide_run(xs, causal, win, cap,
+                     f"sweep {(Bs, Sq, Skv, Hq, Hkv, D)} {dts}")
     qw, kw_, vw = randn(1, 2048, 8, 512), randn(1, 2048, 4, 512), \
         randn(1, 2048, 4, 512)
-    errw = k9_compare("flash_attention_wide D=512 float32 no cap",
-                      flash_attention_cuda(qw, kw_, vw, True),
-                      ref.flash_attention_ref(qw, kw_, vw, True))
+    errw = wide_run([qw, kw_, vw], True, None, None, "D=512 float32 no cap")
     bmsw, byw = bound((2 * qw.numel() + 2 * kw_.numel()) * 4,
                       4.0 * 8 * 512 * attn_pairs(2048, 2048, True, None))
     qwt, kwt, vwt = (x.transpose(1, 2) for x in (qw, kw_, vw))
@@ -2221,23 +2291,52 @@ def lm_kernel_phases(torch, dev, windows, lm_recs, ptxas):
         replaces="src/repro/kernels/flash_attention.py:119",
         **path_launches("flash_attention_wide"),
         max_abs_err=errw["max_abs_err"],
-        ms=time_ms(lambda: flash_attention_cuda(qw, kw_, vw, True), 3,
+        ms=time_ms(lambda: flash_attention_cuda(qw, kw_, vw, True), 5,
                    warmup=1),
         plain_ms=time_ms(lambda: ref.flash_attention_ref(qw, kw_, vw, True),
                          3, warmup=1),
         bound_ms=bmsw, bound_by=byw,
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            qwt, kwt, vwt, is_causal=True, enable_gqa=True), 3, warmup=1),
+            qwt, kwt, vwt, is_causal=True, enable_gqa=True), 5, warmup=1),
         library_call="F.scaled_dot_product_attention(is_causal=True, "
                      "enable_gqa=True) at the same inputs",
-        form="D > 256: two passes in f32 on CUDA cores (row max and sum, "
-             "then P V per 128 output columns), shared memory fixed in D",
+        form="256 < D <= 1024: one pass in f32 on CUDA cores over a cluster "
+             "of ceil(D / 128) blocks split along D, partial scores summed "
+             "through distributed shared memory in rank order",
         shape="B=1 S=2048 Hq=8 Hkv=4 D=512 float32 causal, no cap",
         bound_peak="FP32 non-tensor 67 TFLOP/s, HBM 3.35 TB/s",
         cap50_ms=wide_ms, cap50_err=wide_err,
         cap50_err_kind="f32: max abs error; bf16: relative RMS error",
-        tol=K9_TOL, bf16_rel_rms_tol=K9_BF16_REL_RMS))
+        tol=K9_TOL, bf16_rel_rms_tol=K9_BF16_REL_RMS,
+        **ptxas.get("flash_attention_wide", {})))
     del qw, kw_, vw, qwt, kwt, vwt
+    # the two-pass form past D = 1024, at half the sequence
+    D2 = 1100
+    q2, k2, v2 = randn(1, 1024, 8, D2), randn(1, 1024, 4, D2), \
+        randn(1, 1024, 4, D2)
+    err2 = wide_run([q2, k2, v2], True, None, None, f"D={D2} float32")
+    q2t, k2t, v2t = (x.transpose(1, 2) for x in (q2, k2, v2))
+    out.append(dict(
+        name="flash_attention_wide_2pass", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:119",
+        **path_launches("flash_attention_wide_2pass"),
+        max_abs_err=err2["max_abs_err"],
+        ms=time_ms(lambda: flash_attention_cuda(q2, k2, v2, True), 2,
+                   warmup=1),
+        plain_ms=time_ms(lambda: ref.flash_attention_ref(q2, k2, v2, True),
+                         2, warmup=1),
+        **dict(zip(("bound_ms", "bound_by"), bound(
+            (2 * q2.numel() + 2 * k2.numel()) * 4,
+            4.0 * 8 * D2 * attn_pairs(1024, 1024, True, None)))),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            q2t, k2t, v2t, is_causal=True, enable_gqa=True), 2, warmup=1),
+        form="D > 1024: two passes in f32 on CUDA cores (row max and sum, "
+             "then P V per 128 output columns), shared memory fixed in D",
+        shape=f"B=1 S=1024 Hq=8 Hkv=4 D={D2} float32 causal, no cap",
+        bound_peak="FP32 non-tensor 67 TFLOP/s, HBM 3.35 TB/s",
+        **ptxas.get("flash_attention_wide_2pass", {})))
+    del q2, k2, v2, q2t, k2t, v2t
 
     # ---- K10 selective scan (falcon-mamba-7b's prefill) -------------------
     args = lm_recs["mamba_scan"]
@@ -2278,6 +2377,57 @@ def lm_kernel_phases(torch, dev, windows, lm_recs, ptxas):
               f"prefill)", bit_equal_to_plain=True,
         sweep_states=sorted({sw[3] for sw in MAMBA_SWEEP}),
         **ptxas.get("mamba_scan", {})))
+
+    # ---- K10's wide-state form (N > 256; no configuration reaches it) ----
+    def scan_inputs(Bs_, S_, C_, N_):
+        return (torch.rand(Bs_, S_, C_, generator=gen).to(dev) * 0.1,
+                randn(Bs_, S_, C_),
+                -torch.rand(C_, N_, generator=gen).to(dev) * 3,
+                randn(Bs_, S_, N_), randn(Bs_, S_, N_), randn(Bs_, C_, N_))
+
+    def wide_scan(sw, label):
+        _build.reset_counts()
+        got = mamba_scan_cuda(*sw)
+        got_counts = {k: v for k, v in _build.counts().items() if v}
+        check(got_counts == {"mamba_scan_wide": 1},
+              f"mamba_scan {label}: launches {got_counts}, expected one of "
+              "mamba_scan_wide")
+        return got
+
+    for (Bs_, S_, C_, N_) in MAMBA_WIDE_SWEEP:
+        sw = scan_inputs(Bs_, S_, C_, N_)
+        compare(f"mamba_scan_wide sweep {(Bs_, S_, C_, N_)}",
+                wide_scan(sw, f"sweep {(Bs_, S_, C_, N_)}"),
+                ref.mamba_scan_ref(*sw), exact=True)
+    # falcon-mamba-7b's prefill shape with 512 states: one plain run gives
+    # both the check and the plain time
+    Bw, Sw, Cw, Nw = 4, 2048, 8192, 2 * MAX_STATE
+    sw = scan_inputs(Bw, Sw, Cw, Nw)
+    got = wide_scan(sw, f"B={Bw} S={Sw} C={Cw} N={Nw}")
+    want, plain_ms = timed(lambda: ref.mamba_scan_ref(*sw))
+    errw = compare(f"mamba_scan_wide B={Bw} S={Sw} C={Cw} N={Nw}", got,
+                   want, exact=True)
+    del got, want
+    bmsw, byw = bound(4.0 * (Bw * Sw * (2 * Cw + 2 * Nw) + Bw * Sw * Cw
+                             + Cw * Nw + 2 * Bw * Cw * Nw),
+                      7.0 * Bw * Sw * Cw * Nw + Bw * Sw * Cw)
+    out.append(dict(
+        name="mamba_scan_wide", route="cuda",
+        source="src/repro_torch/csrc/mamba_scan.cu",
+        replaces="src/repro/kernels/mamba_scan.py:89",
+        **path_launches("mamba_scan_wide"), max_abs_err=errw,
+        ms=time_ms(lambda: mamba_scan_cuda(*sw), 3, warmup=1),
+        plain_ms=plain_ms, bound_ms=bmsw, bound_by=byw, library_ms=None,
+        sfu_floor_ms=Bw * Sw * Cw * Nw / (props.multi_processor_count * 16
+                                          * max_sm_clock_hz()) * 1e3,
+        form="N > 256: the lanes form at G = 32 in ceil(N / 256) passes "
+             "over the sequence in one launch, each step's sum carried "
+             "from pass to pass through y",
+        shape=f"B={Bw} S={Sw} C={Cw} N={Nw} f32 (falcon-mamba-7b's "
+              "prefill shape with 512 states)", bit_equal_to_plain=True,
+        sweep_states=sorted({sw_[3] for sw_ in MAMBA_WIDE_SWEEP}),
+        **ptxas.get("mamba_scan_wide", {})))
+    del sw
     return out
 
 

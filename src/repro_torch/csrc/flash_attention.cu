@@ -10,9 +10,10 @@
 //             f32 sweep's 1e-4 tolerance needs (neither bf16 nor TF32
 //             products meet it);
 //
-// and for D > 256, either type, flash_wide_stats + flash_wide_out (at
-// the end of the file): two passes in f32 whose shared memory is fixed
-// in D.
+// and for D > 256, either type, in f32 (at the end of the file):
+// flash_wide_kernel up to D = 1024, one pass over a thread-block cluster
+// split along D; past it flash_wide_stats + flash_wide_out, two passes
+// whose shared memory is fixed in D.
 //
 // Replaces src/repro/kernels/flash_attention.py:flash_attention_pallas
 // (_flash_fwd_kernel).  Bound on this card: operations -- 4 D per
@@ -714,9 +715,393 @@ extern "C" int flash_attention_bf16_launch(const void* q, const void* k,
 // The wide form: any head dim D > 256, f32 or bf16 inputs, computed in f32
 // on CUDA cores.  Both forms above keep a block's query rows (and the bf16
 // form its K/V tiles) in shared memory sized by D, which does not fit past
-// D = 256; this form's shared memory is fixed (~50 KB) whatever D, at the
-// price of computing S = Q K^T twice or more.  Two passes, the rows folded
-// as in the f32 form (FA_R = 64 rows, key tiles of FA_TK = 32):
+// D = 256.  Semantics as the f32 form: q scaled by D**-0.5 in f32 before
+// the product, f32 accumulation, cap before mask, the finite FA_NEG for
+// masked scores, causal and window with key tiles outside them skipped,
+// the online softmax, l floored at 1e-30; bf16 inputs are read as bf16 and
+// converted, the output rounded to bf16 once.  On no path (no
+// configuration has d_head > 256).
+//
+// flash_wide_kernel, D <= 1024 (launch count flash_attention_wide): one
+// pass, a thread-block cluster split along D.  A cluster of
+// n_c = ceil(D / DS) blocks (DS = 128 columns each, n_c <= 8, the portable
+// cluster size) shares one query tile of FA_R = 64 folded rows; block r
+// owns the columns [128 r, 128 r + 128).
+//
+//   - It stages its columns of the scaled Q tile in shared memory once for
+//     the whole key loop.
+//   - Per key tile of BK = 64 keys it loads its columns of K, computes the
+//     partial scores over them (4 x 4 a thread, float4 shared loads along
+//     D: 8 loads per 64 FMAs) and writes them to its own shared memory.
+//   - One cluster barrier, in two halves: the block arrives, loads its
+//     columns of V over K's while the others arrive, then waits.
+//   - Each block sums the n_c partials through distributed shared memory
+//     (cluster.map_shared_rank) in rank order 0 .. n_c - 1, so every block
+//     of the cluster holds bit-identical scores, maxima, sums and
+//     probabilities; it applies the cap and the masks, runs the online
+//     softmax (a row's 64 keys over 4 lanes) and accumulates its 64 x 128
+//     slice of O in registers (8 x 4 a thread).
+//   - The partial-score buffers are double-buffered: a block rewrites a
+//     buffer two tiles later, after the next barrier, by which every block
+//     has read it, so one cluster barrier a key tile suffices; the
+//     probabilities go to the buffer of the tile before, free by then.
+//
+// So each score is computed once, Q, K and V are read once per query tile,
+// and there is one launch and no scratch in device memory.  Shared memory:
+// 103 KB a block; two blocks an SM (<= 128 registers, which holding V in
+// registers across the sum would exceed).
+//
+// Past D = 1024 the two-pass form below runs (flash_wide_stats +
+// flash_wide_out, launch count flash_attention_wide_2pass): its shared
+// memory is fixed in D, at the price of computing S = Q K^T 1 + D / 128
+// times.
+#include <cooperative_groups.h>
+
+namespace fw {
+
+namespace cg = cooperative_groups;
+
+constexpr int DS = 128;                 // D columns a block of the cluster
+constexpr int BK = 64;                  // keys a tile
+constexpr int MAX_CLUSTER = 8;          // D <= DS * MAX_CLUSTER = 1024
+constexpr int ST = DS + 4;              // row stride of the Q, K, V slices
+constexpr int PS = BK + 4;              // row stride of the score buffers
+// q [FA_R][ST], k or v [BK][ST], two score buffers [FA_R][PS], m, l, alpha
+constexpr int SMEM_FLOATS = FA_R * ST + BK * ST + 2 * FA_R * PS + 3 * FA_R;
+constexpr int SMEM_BYTES = SMEM_FLOATS * 4;
+
+// n (<= 4) elements from p as a float4, zeros past them; vec: all four,
+// one aligned vector load
+__device__ __forceinline__ float4 load4(const float* p, int n, bool vec) {
+    if (vec && n >= 4) return *reinterpret_cast<const float4*>(p);
+    float x[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) x[i] = i < n ? p[i] : 0.f;
+    return make_float4(x[0], x[1], x[2], x[3]);
+}
+
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p, int n,
+                                        bool vec) {
+    if (vec && n >= 4) {
+        const uint2 raw = *reinterpret_cast<const uint2*>(p);
+        const float2 a = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+        const float2 b = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+        return make_float4(a.x, a.y, b.x, b.y);
+    }
+    float x[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) x[i] = i < n ? __bfloat162float(p[i]) : 0.f;
+    return make_float4(x[0], x[1], x[2], x[3]);
+}
+
+__device__ __forceinline__ float4 scale4(float4 x, float s) {
+    return make_float4(x.x * s, x.y * s, x.z * s, x.w * s);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(FA_THREADS, 2)
+flash_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, T* __restrict__ o, int Sq,
+                  int Skv, int Hq, int Hkv, int D, int g, int tq, int causal,
+                  int window, float cap, float scale, int vec) {
+    cg::cluster_group cl = cg::this_cluster();
+    const int nc = (int)cl.num_blocks(), rank = (int)cl.block_rank();
+    extern __shared__ float4 fw_sm4[];
+    float* q_sh = reinterpret_cast<float*>(fw_sm4);    // [FA_R][ST]
+    float* kv_sh = q_sh + FA_R * ST;                    // [BK][ST]
+    float* ps_sh = kv_sh + BK * ST;                     // [2][FA_R][PS]
+    float* m_sh = ps_sh + 2 * FA_R * PS;                // [FA_R]
+    float* l_sh = m_sh + FA_R;                          // [FA_R]
+    float* a_sh = l_sh + FA_R;                          // [FA_R]
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int bh = blockIdx.x / nc;
+    const int b = bh / Hkv, hk = bh % Hkv;
+    const int q0 = (gridDim.y - 1 - blockIdx.y) * tq;  // latest tiles first
+    const int nq = min(tq, Sq - q0);
+    const int rows = tq * g;
+    const int d0 = rank * DS;                           // this block's columns
+    const bool vv = vec != 0;
+
+    // the scaled Q slice, zero past the valid rows and past D
+    for (int e = tid; e < FA_R * DS / 4; e += FA_THREADS) {
+        const int r = e >> 5, d = d0 + 4 * (e & 31);
+        float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (r < rows && r / g < nq && d < D) {
+            const int qi = q0 + r / g, h = hk * g + r % g;
+            x = scale4(load4(q + (((size_t)b * Sq + qi) * Hq + h) * D + d,
+                             D - d, vv), scale);
+        }
+        *reinterpret_cast<float4*>(q_sh + r * ST + 4 * (e & 31)) = x;
+    }
+    for (int r = tid; r < FA_R; r += FA_THREADS) {
+        m_sh[r] = FA_NEG;
+        l_sh[r] = 0.f;
+    }
+    // this block's K or V slice of key tile k0 (8 float4 a thread)
+    auto load_kv = [&](const T* src, int k0, float4* x) {
+#pragma unroll
+        for (int i = 0; i < BK * DS / 4 / FA_THREADS; ++i) {
+            const int e = tid + FA_THREADS * i;
+            const int j = e >> 5, d = d0 + 4 * (e & 31), kj = k0 + j;
+            x[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+            if (kj < Skv && d < D)
+                x[i] = load4(src + (((size_t)b * Skv + kj) * Hkv + hk) * D + d,
+                             D - d, vv);
+        }
+    };
+    auto store_kv = [&](const float4* x) {
+#pragma unroll
+        for (int i = 0; i < BK * DS / 4 / FA_THREADS; ++i) {
+            const int e = tid + FA_THREADS * i;
+            *reinterpret_cast<float4*>(kv_sh + (e >> 5) * ST
+                                       + 4 * (e & 31)) = x[i];
+        }
+    };
+
+    // O slice: rows warp + 8 i, columns 4 lane + j of this block's DS
+    float acc[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+    // key tiles that hold an unmasked (valid query, key) pair
+    int kbeg = 0, kend = Skv;
+    if (causal) kend = min(Skv, q0 + nq);
+    if (window > 0) kbeg = max(0, q0 - window + 1);
+    kbeg = (kbeg / BK) * BK;
+
+    const int tr = tid >> 4, tc = tid & 15;     // score tile: rows tr + 16 i,
+                                                // keys tc + 16 j
+    const int sr = tid >> 2, sq = tid & 3;      // softmax: row sr, keys
+                                                // 16 sq .. 16 sq + 15
+    int buf = 0;
+    for (int k0 = kbeg; k0 < kend; k0 += BK, buf ^= 1) {
+        __syncthreads();                // the last tile's V and P are read
+        {
+            float4 x[BK * DS / 4 / FA_THREADS];
+            load_kv(k, k0, x);
+            store_kv(x);
+        }
+        __syncthreads();
+        // this block's partial scores over its columns
+        float s[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 2
+        for (int dd = 0; dd < DS; dd += 4) {
+            float4 qa[4], ka[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                qa[i] = *reinterpret_cast<const float4*>(
+                    q_sh + (tr + 16 * i) * ST + dd);
+                ka[i] = *reinterpret_cast<const float4*>(
+                    kv_sh + (tc + 16 * i) * ST + dd);
+            }
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                    float x = s[i][j];
+                    x = fmaf(qa[i].x, ka[j].x, x);
+                    x = fmaf(qa[i].y, ka[j].y, x);
+                    x = fmaf(qa[i].z, ka[j].z, x);
+                    x = fmaf(qa[i].w, ka[j].w, x);
+                    s[i][j] = x;
+                }
+        }
+        float* part = ps_sh + buf * FA_R * PS;
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+                part[(tr + 16 * i) * PS + tc + 16 * j] = s[i][j];
+        // the cluster barrier in two halves: arrive once this block's
+        // partials are written, load this tile's V slice over K's while the
+        // other blocks arrive (K's readers are this block's own threads),
+        // then wait until every block's partials are written
+        asm volatile("barrier.cluster.arrive.release.aligned;\n" ::);
+        __syncthreads();
+        {
+            float4 x[BK * DS / 4 / FA_THREADS];
+            load_kv(v, k0, x);
+            store_kv(x);
+        }
+        asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::);
+        // the scores of row sr, keys 16 sq + t: the partials summed in
+        // rank order
+        float sc[16];
+        {
+            const float* p0 = cl.map_shared_rank(part, 0) + sr * PS + 16 * sq;
+#pragma unroll
+            for (int t = 0; t < 16; t += 4) {
+                const float4 x = *reinterpret_cast<const float4*>(p0 + t);
+                sc[t] = x.x;
+                sc[t + 1] = x.y;
+                sc[t + 2] = x.z;
+                sc[t + 3] = x.w;
+            }
+        }
+        for (int rk = 1; rk < nc; ++rk) {
+            const float* pr = cl.map_shared_rank(part, rk) + sr * PS + 16 * sq;
+#pragma unroll
+            for (int t = 0; t < 16; t += 4) {
+                const float4 x = *reinterpret_cast<const float4*>(pr + t);
+                sc[t] += x.x;
+                sc[t + 1] += x.y;
+                sc[t + 2] += x.z;
+                sc[t + 3] += x.w;
+            }
+        }
+        // cap, then masks
+        const int qi = q0 + sr / g;
+        float mx = FA_NEG;
+#pragma unroll
+        for (int t = 0; t < 16; ++t) {
+            const int kj = k0 + 16 * sq + t;
+            float x = sc[t];
+            if (cap > 0.f) x = cap * tanhf(x / cap);
+            const int dp = qi - kj;
+            bool ok = kj < Skv;
+            if (causal) ok = ok && dp >= 0;
+            if (window > 0) ok = ok && dp < window;
+            sc[t] = ok ? x : FA_NEG;
+            mx = fmaxf(mx, sc[t]);
+        }
+        // the online softmax of row sr over its four lanes
+        const float m_prev = m_sh[sr];
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m_prev, mx);
+        float sum = 0.f;
+        float* pp = ps_sh + (buf ^ 1) * FA_R * PS + sr * PS + 16 * sq;
+#pragma unroll
+        for (int t = 0; t < 16; t += 4) {
+            float4 p;
+            p.x = expf(sc[t] - m_new);
+            p.y = expf(sc[t + 1] - m_new);
+            p.z = expf(sc[t + 2] - m_new);
+            p.w = expf(sc[t + 3] - m_new);
+            sum += p.x + p.y + p.z + p.w;
+            *reinterpret_cast<float4*>(pp + t) = p;
+        }
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        if (sq == 0) {
+            const float alpha = expf(m_prev - m_new);
+            l_sh[sr] = l_sh[sr] * alpha + sum;
+            m_sh[sr] = m_new;
+            a_sh[sr] = alpha;
+        }
+        __syncthreads();                // P, alpha and V are written
+        // O = O * alpha + P V
+        const float* pm = ps_sh + (buf ^ 1) * FA_R * PS;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+            const float alpha = a_sh[warp + 8 * i];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) acc[i][j] *= alpha;
+        }
+#pragma unroll 4
+        for (int kk = 0; kk < BK; kk += 4) {
+            float4 vb[4];
+#pragma unroll
+            for (int t = 0; t < 4; ++t)
+                vb[t] = *reinterpret_cast<const float4*>(
+                    kv_sh + (kk + t) * ST + 4 * lane);
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+                const float4 p = *reinterpret_cast<const float4*>(
+                    pm + (warp + 8 * i) * PS + kk);
+                const float pt[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+                for (int t = 0; t < 4; ++t) {
+                    acc[i][0] += pt[t] * vb[t].x;
+                    acc[i][1] += pt[t] * vb[t].y;
+                    acc[i][2] += pt[t] * vb[t].z;
+                    acc[i][3] += pt[t] * vb[t].w;
+                }
+            }
+        }
+    }
+    cl.sync();                          // no block reads this one's buffers
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+        const int r = warp + 8 * i;
+        if (r >= rows || r / g >= nq) continue;
+        const int qi = q0 + r / g, h = hk * g + r % g;
+        const float den = fmaxf(l_sh[r], 1e-30f);
+        T* orow = o + (((size_t)b * Sq + qi) * Hq + h) * D;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const int d = d0 + 4 * lane + j;
+            if (d < D) fa_store(orow + d, acc[i][j] / den);
+        }
+    }
+}
+
+template <typename T>
+static int launch(const void* q, const void* k, const void* v, void* o,
+                  int B, int Sq, int Skv, int Hq, int Hkv, int D, int causal,
+                  int window, float cap, float scale, cudaStream_t stream) {
+    const int g = Hq / Hkv;
+    const int tq = FA_R / g;
+    const int nc = (D + DS - 1) / DS;
+    if (nc < 1 || nc > MAX_CLUSTER) return (int)cudaErrorInvalidValue;
+    // one aligned vector load per 4 elements: D % 4 == 0 and aligned bases
+    const size_t al = 4 * sizeof(T);
+    const int vec = D % 4 == 0 && (size_t)q % al == 0 && (size_t)k % al == 0
+                    && (size_t)v % al == 0;
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        SMEM_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)(nc * B * Hkv), (Sq + tq - 1) / tq, 1);
+    cfg.blockDim = dim3(FA_THREADS, 1, 1);
+    cfg.dynamicSmemBytes = SMEM_BYTES;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = (unsigned)nc;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, flash_wide_kernel<T>, (const T*)q,
+                             (const T*)k, (const T*)v, (T*)o, Sq, Skv, Hq,
+                             Hkv, D, g, tq, causal, window, cap, scale, vec);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
+}
+
+}  // namespace fw
+
+// f32 (bf16 == 0) or bf16 q, k, v, o, contiguous; window <= 0: none;
+// cap <= 0: none.  The wrapper has checked 256 < D <= 1024,
+// Hq % Hkv == 0 and Hq / Hkv <= FA_R.
+extern "C" int flash_attention_wide_launch(const void* q, const void* k,
+                                           const void* v, void* o, int B,
+                                           int Sq, int Skv, int Hq, int Hkv,
+                                           int D, int causal, int window,
+                                           float cap, float scale, int bf16,
+                                           void* stream) {
+    cudaStream_t s = (cudaStream_t)stream;
+    if (bf16)
+        return fw::launch<__nv_bfloat16>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D,
+                                         causal, window, cap, scale, s);
+    return fw::launch<float>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, causal,
+                             window, cap, scale, s);
+}
+
+// ---------------------------------------------------------------------------
+// The two-pass wide form, D > 1024 (flash_wide_stats + flash_wide_out,
+// launch count flash_attention_wide_2pass), the rows folded as in the f32
+// form (FA_R = 64 rows, key tiles of FA_TK = 32):
 //
 //   flash_wide_stats: grid (B x Hkv, query tiles).  For each key tile it
 //     computes the 64 x 32 scores over D in chunks of FW_DC columns of the
@@ -730,11 +1115,7 @@ extern "C" int flash_attention_bf16_launch(const void* q, const void* k,
 //     stages its FW_DO columns of the v tile and accumulates p v in
 //     registers, then writes acc / max(l, 1e-30).
 //
-// Semantics as the f32 form: q scaled by D**-0.5 in f32 before the
-// product, f32 accumulation, cap before mask, the finite FA_NEG for masked
-// scores, causal and window with key tiles outside them skipped, l floored
-// at 1e-30.  bf16 inputs are read as bf16 and converted; the output is
-// rounded to bf16 once.  On no path (no configuration has d_head > 256).
+// Its shared memory (~50 KB) is fixed whatever D.
 #define FW_DC 64           // D columns of q and k staged per chunk
 #define FW_DO 128          // output columns per block of the second pass
 #define FW_QS (FW_DC + 1)  // padded row stride of the staged chunks
@@ -779,7 +1160,7 @@ __device__ __forceinline__ void fw_scores(
                     : 0.f;
         }
         __syncthreads();
-#pragma unroll 4
+#pragma unroll 1
         for (int d = 0; d < FW_DC; ++d) {
             const float k0v = k_sh[tc * FW_QS + d];
             const float k1v = k_sh[(tc + 16) * FW_QS + d];
@@ -995,13 +1376,11 @@ static int flash_wide_launch_t(const void* q, const void* k, const void* v,
 
 // f32 (bf16 == 0) or bf16 q, k, v, o, contiguous; ml: f32 scratch of
 // 2 B Sq Hq floats; window <= 0: none; cap <= 0: none.  The wrapper has
-// checked Hq % Hkv == 0 and Hq / Hkv <= FA_R.
-extern "C" int flash_attention_wide_launch(const void* q, const void* k,
-                                           const void* v, void* o, void* ml,
-                                           int B, int Sq, int Skv, int Hq,
-                                           int Hkv, int D, int causal,
-                                           int window, float cap, float scale,
-                                           int bf16, void* stream) {
+// checked D > 1024, Hq % Hkv == 0 and Hq / Hkv <= FA_R.
+extern "C" int flash_attention_wide_2pass_launch(
+        const void* q, const void* k, const void* v, void* o, void* ml, int B,
+        int Sq, int Skv, int Hq, int Hkv, int D, int causal, int window,
+        float cap, float scale, int bf16, void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
     if (bf16)
         return flash_wide_launch_t<__nv_bfloat16>(

@@ -60,10 +60,15 @@ _SIGNATURES = {
                                     _I, _I, _F, _F, _P], _I),
     "flash_attention_bf16_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                      _I, _I, _F, _F, _P], _I),
-    "flash_attention_wide_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                     _I, _I, _I, _F, _F, _I, _P], _I),
+    "flash_attention_wide_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                     _I, _I, _F, _F, _I, _P], _I),
+    "flash_attention_wide_2pass_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                           _I, _I, _I, _I, _F, _F, _I, _P],
+                                          _I),
     "mamba_scan_launch": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _P], _I),
+    "mamba_scan_wide_launch": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                _I, _P], _I),
     "mamba_scan_occupancy": ([_I], _I),
     "dtw_band_warp_occupancy": ([_I, _I], _I),
     "rt_error_string": ([_I], ctypes.c_char_p),
@@ -161,7 +166,8 @@ COUNTS: dict[str, int] = dict.fromkeys(
      "dtw_band_block", "dtw_band_stream", "dtw_band_stream_cluster",
      "dtw_band_stream_scratch", "dtw_band_step", "dtw_band_step_block",
      "sketch_bound", "lb_keogh", "flash_attention",
-     "flash_attention_f32", "flash_attention_wide", "mamba_scan"), 0)
+     "flash_attention_f32", "flash_attention_wide",
+     "flash_attention_wide_2pass", "mamba_scan", "mamba_scan_wide"), 0)
 
 
 def reset_counts() -> None:

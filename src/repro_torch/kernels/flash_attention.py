@@ -18,14 +18,19 @@ the causal wedge or the window.
 - float32 (``flash_attention_f32``): CUDA cores in f32, blocks of 64
   rows, key tiles of 32 in shared memory; the f32 tolerance (1e-4) is
   below what bf16 or TF32 products reach.
-- D > 256, float32 or bfloat16 (``flash_attention_wide``, one count per
-  call of its two kernels): both forms above keep a block's rows in
-  shared memory sized by D, so past 256 a two-pass form runs in f32 on
-  CUDA cores with shared memory fixed in D: the first pass takes each
-  row's softmax max and sum over the keys, the second recomputes the
-  scores and accumulates P V for its own 128 output columns.  bf16
-  inputs are read as bf16 and the output rounded to bf16 once.  No
-  configuration reaches it (gemma2-2b's d_head 256 is the largest).
+- D > 256, float32 or bfloat16, in f32 on CUDA cores: both forms above
+  keep a block's rows in shared memory sized by D.  Up to
+  ``MAX_WIDE_ONE_PASS`` = 1024 (``flash_attention_wide``, one launch): one
+  pass over a thread-block cluster of ``ceil(D / 128)`` blocks, each
+  holding 128 columns of the query tile, its partial scores summed
+  through distributed shared memory in rank order, so every score is
+  computed once and every block of the cluster runs the same softmax on
+  its slice of O.  Past it (``flash_attention_wide_2pass``, one count per
+  call of its two kernels): two passes with shared memory fixed in D, the
+  first taking each row's softmax max and sum, the second recomputing the
+  scores for its own 128 output columns.  bf16 inputs are read as bf16
+  and the output rounded to bf16 once.  No configuration reaches either
+  (gemma2-2b's d_head 256 is the largest).
 
 The wrapper takes what the kernels do not, exactly: a group of more than
 ``MAX_GROUP`` query heads per kv head runs in launches of at most that
@@ -33,7 +38,8 @@ many heads of each group; in bfloat16, a head dim that is not a multiple
 of 8 (the TMA's row stride) runs on copies zero-padded to the next
 multiple of 8, with the true ``D ** -0.5`` scale, and the output is cut
 back; storage that is not 16-byte aligned runs on an aligned copy (neither
-applies to the wide form, which reads its inputs element by element).
+applies to the wide form, which reads unaligned storage element by
+element).
 
 Forward only: inputs that require a gradient are refused (training,
 ROADMAP Queue 1 item 13(b), is to recompute through the plain version,
@@ -55,6 +61,9 @@ Tensor = torch.Tensor
 MAX_GROUP = 64
 # the largest head dim of the f32 and bf16 forms; past it the wide form
 MAX_HEAD_DIM = 256
+# the largest head dim of the wide form's one pass (8 blocks of 128
+# columns, the portable cluster size); past it the two-pass form
+MAX_WIDE_ONE_PASS = 1024
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -124,16 +133,27 @@ def _attend(q: Tensor, k: Tensor, v: Tensor, out: Tensor, causal: bool,
         return
     bf16 = q.dtype == torch.bfloat16
     if D > MAX_HEAD_DIM:
-        # each row's softmax max and sum, from the first pass to the second
-        ml = torch.empty((2, B, Sq, Hq), dtype=torch.float32,
-                         device=q.device)
-        _build.check(_build.library().flash_attention_wide_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            ml.data_ptr(), B, Sq, k.shape[1], Hq, Hkv, D,
-            int(bool(causal)), 0 if window is None else int(window),
-            0.0 if score_cap is None else float(score_cap), float(scale),
-            int(bf16), stream_ptr(q.device)), "flash_attention_wide")
-        _build.COUNTS["flash_attention_wide"] += 1
+        lib = _build.library()
+        args = (B, Sq, k.shape[1], Hq, Hkv, D, int(bool(causal)),
+                0 if window is None else int(window),
+                0.0 if score_cap is None else float(score_cap), float(scale),
+                int(bf16), stream_ptr(q.device))
+        if D <= MAX_WIDE_ONE_PASS:
+            name = "flash_attention_wide"
+            rc = lib.flash_attention_wide_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                *args)
+        else:
+            # each row's softmax max and sum, from the first pass to the
+            # second
+            ml = torch.empty((2, B, Sq, Hq), dtype=torch.float32,
+                             device=q.device)
+            name = "flash_attention_wide_2pass"
+            rc = lib.flash_attention_wide_2pass_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                ml.data_ptr(), *args)
+        _build.check(rc, name)
+        _build.COUNTS[name] += 1
         return
     if bf16 and D % 8:
         # zero columns add nothing to q k^T; v's zero columns are cut off

@@ -1,14 +1,19 @@
 """K8 wrapper: the LB_KEOGH matrix on the card (csrc/lb_keogh.cu).
 
 Replaces ``src/repro/kernels/lb_keogh.py:lb_keogh_pallas``
-(``_lb_keogh_kernel``).  Bound on this card: FP32 operations, ~6 per
-(query, candidate, column): ~12.9 GFLOP at Q = 256, C = 16384, L = 512,
-about 0.19 ms at 67 TFLOP/s, against ~70 MB of reads (~0.02 ms).  Design:
-a block computes a 32 x 32 output tile and walks L in 32-column chunks as
-a GEMM walks its k-loop, staging the query rows and both envelope rows of
-the chunk in shared memory and accumulating in registers; the ragged
-edges are masked in the kernel.  Its sum over L runs in another order
-than the plain version's, so the two agree to rtol 1e-5.
+(``_lb_keogh_kernel``).  Bound on this card: FP32 operations, 5 per
+(query, candidate, column), the least a term needs: ~10.7 GFLOP at
+Q = 256, C = 16384, L = 512, about 0.16 ms at 67 TFLOP/s, against ~70 MB
+of reads (~0.02 ms); the attainable floor is the issue rate, 4
+instructions a term at 128 lanes an SM a clock, ~0.26 ms there.  Design:
+the clamp form ``d = q - min(max(q, lo), u)``, ``acc = fma(d, d, acc)``,
+equal term by term to the reference's where ``lo <= u`` (a chunk holding
+an envelope element with ``lo > u`` or a NaN runs the reference's
+arithmetic), over 128 x 64 output tiles with 8 x 4 outputs a thread, L
+walked in 32-column chunks copied in by ``cp.async`` while the last one is
+computed; the ragged edges are masked in the kernel.  Its sum over L runs
+in another order than the plain version's, so the two agree to rtol
+1e-5.
 """
 
 from __future__ import annotations

@@ -11,8 +11,12 @@ the whole sequence, so ``N <= 256``; the group is skewed one step a lane
 and passes each step's running sum down by one shuffle, so y keeps the
 plain version's n-ordered sum; blocks copy chunks of 32 steps of the
 shared B and C rows and of their own delta and u columns to shared
-memory by ``cp.async``, the next chunk's while this one runs.
-Forward only: inputs that require a gradient are refused
+memory by ``cp.async``, the next chunk's while this one runs.  Past
+``MAX_STATE`` the wrapper picks the wide-state form by N (launch count
+``mamba_scan_wide``): the same kernel at G = 32 in one launch of
+``ceil(N / 256)`` passes over the sequence, 256 states a pass, each
+step's sum carried from pass to pass through y, so it stays bit-equal for
+any N.  Forward only: inputs that require a gradient are refused
 (training, ROADMAP Queue 1 item 13(b), is to recompute through the plain
 version, as ``repro.kernels.ops._mamba_bwd`` does).
 """
@@ -26,8 +30,8 @@ from repro_torch.kernels._launch import cuda_f32, stream_ptr
 
 Tensor = torch.Tensor
 
-# the state h[N] lives in the registers of a group of at most 32 lanes, 8
-# a lane
+# the largest N whose state h[N] lives in the registers of one group of at
+# most 32 lanes, 8 a lane; past it the wide-state form runs
 MAX_STATE = 256
 
 
@@ -52,18 +56,18 @@ def mamba_scan_cuda(delta: Tensor, u: Tensor, A: Tensor, Bmat: Tensor,
         if x.requires_grad:
             raise ValueError(f"{name}: the kernel is forward-only; its "
                              "input may not require a gradient")
-    if not 1 <= N <= MAX_STATE:
-        raise ValueError(f"ssm state N = {N}: the kernel keeps h[N] in "
-                         f"the registers of at most 32 lanes and takes "
-                         f"1 <= N <= {MAX_STATE}")
+    if N < 1:
+        raise ValueError(f"ssm state N = {N}: expected N >= 1")
     y = torch.empty_like(delta)
     hT = torch.empty_like(h0)
     if Bsz == 0 or C == 0:
         return y, hT
     lib = _build.library()
-    _build.check(lib.mamba_scan_launch(
+    launch, name = ((lib.mamba_scan_launch, "mamba_scan") if N <= MAX_STATE
+                    else (lib.mamba_scan_wide_launch, "mamba_scan_wide"))
+    _build.check(launch(
         delta.data_ptr(), u.data_ptr(), A.data_ptr(), Bmat.data_ptr(),
         Cmat.data_ptr(), h0.data_ptr(), y.data_ptr(), hT.data_ptr(), Bsz, S,
-        C, N, stream_ptr(dev)), "mamba_scan")
-    _build.COUNTS["mamba_scan"] += 1
+        C, N, stream_ptr(dev)), name)
+    _build.COUNTS[name] += 1
     return y, hT

@@ -17,7 +17,8 @@ form past D = 256 to the same tolerances by input type, bf16 also to a
 relative RMS error of 1e-2; the
 selective scan (K10) bit for bit (its N-sum keeps the plain version's
 order; where the tests below say rtol 1e-5, atol 1e-6, they hold the
-sweep of earlier slices to that bound too).
+sweep of earlier slices to that bound too), its wide-state form past
+N = 256 bit for bit too.
 """
 
 import numpy as np
@@ -38,7 +39,10 @@ from repro_torch.kernels.dtw_band import (
     k5_form,
 )
 from repro_torch.kernels.envelope import envelope_cuda
-from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.flash_attention import (
+    MAX_WIDE_ONE_PASS,
+    flash_attention_cuda,
+)
 from repro_torch.kernels.lb_enhanced import lb_enhanced_cuda
 from repro_torch.kernels.lb_enhanced_pairwise import lb_enhanced_pairwise_cuda
 from repro_torch.kernels.lb_keogh import lb_keogh_cuda
@@ -364,7 +368,9 @@ def test_wrappers_count_launches_and_refuse_bad_input(dev):
                                "dtw_band_step_block": 0, "sketch_bound": 0,
                                "lb_keogh": 0, "flash_attention": 0,
                                "flash_attention_f32": 0,
-                               "flash_attention_wide": 0, "mamba_scan": 0}
+                               "flash_attention_wide": 0,
+                               "flash_attention_wide_2pass": 0,
+                               "mamba_scan": 0, "mamba_scan_wide": 0}
     with pytest.raises(ValueError, match="float32"):
         dtw_band_cuda(x.double(), x.double(), 3)
     with pytest.raises(ValueError, match="contiguous"):
@@ -429,13 +435,45 @@ def test_sketch_bound_kernel_bit_equal(dev, Q, N, S):
         sketch_bound_cuda(qs, lo.to(dev).float(), hi.to(dev), wseg)
 
 
-@pytest.mark.parametrize("Q,C,L,w", [(3, 37, 33, 8), (9, 70, 64, 1),
-                                     (33, 31, 100, 0), (2, 65, 9, 9),
-                                     (40, 600, 512, 51)])
+# Q, C, L, w: ragged against the kernel's 128 x 64 output tile and its
+# 32-column chunks (Q = 129, C = 65, L = 33 straddle them), full interior
+# tiles (Q = 256, C = 128, L = 512), L = 17984 (UEA EigenWorms)
+LB_KEOGH_SWEEP = [(3, 37, 33, 8), (9, 70, 64, 1), (33, 31, 100, 0),
+                  (2, 65, 9, 9), (40, 600, 512, 51), (129, 65, 33, 4),
+                  (256, 128, 512, 51), (5, 70, 17984, 179), (1, 1, 1, 0)]
+
+
+@pytest.mark.parametrize("Q,C,L,w", LB_KEOGH_SWEEP)
 def test_lb_keogh_kernel(dev, Q, C, L, w):
     q, c = _rand(dev, 13, Q, L), _rand(dev, 14, C, L)
     u, lo = ref.envelope_ref(c, w)
     _check(lb_keogh_cuda(q, u, lo), ref.lb_keogh_ref(q, u, lo), exact=False)
+
+
+@pytest.mark.parametrize("Q,C,L,w", [(130, 70, 300, 10), (7, 200, 17984, 50),
+                                     (256, 128, 512, 51)])
+def test_lb_keogh_kernel_random_walks_and_odd_envelopes(dev, Q, C, L, w):
+    """Non-normalised random walks of scale ~100, then envelopes with some
+    lo > u, some +inf and -inf bounds and a NaN, to rtol 1e-5, atol 1e-6
+    of the plain version, NaN where it has NaN: the chunks that hold such
+    an element run the reference's arithmetic in the kernel."""
+    g = np.random.default_rng(Q + L)
+    q = torch.from_numpy(g.normal(size=(Q, L)).cumsum(1) * 10).float().to(dev)
+    c = torch.from_numpy(g.normal(size=(C, L)).cumsum(1) * 10).float().to(dev)
+    u, lo = ref.envelope_ref(c, w)
+    _check(lb_keogh_cuda(q, u, lo), ref.lb_keogh_ref(q, u, lo), exact=False)
+    u, lo = u.clone(), lo.clone()
+    u[3, 5] = lo[3, 5] - 25.0                       # lo > u
+    lo[4, 7:40] = u[4, 7:40] + 1.0                  # a run of lo > u
+    u[5, 100:110] = float("inf")
+    lo[6, :L // 2] = float("-inf")
+    u[C - 1, L - 1], lo[C - 1, L - 1] = float("inf"), float("-inf")
+    lo[C - 2, L // 3] = float("nan")
+    got, want = lb_keogh_cuda(q, u, lo), ref.lb_keogh_ref(q, u, lo)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.isnan(want[:, C - 2]).all()
+    ok = ~torch.isnan(want)
+    _check(got[ok], want[ok], exact=False)
 
 
 def test_sketch_path_on_the_card_equals_the_cpu(dev):
@@ -527,18 +565,38 @@ MAMBA_SWEEP = [(2, 33, 70, 4), (3, 100, 300, 16), (1, 17, 129, 64),
                (1, 70, 40, 128), (1, 40, 33, MAX_STATE)]
 
 
-@pytest.mark.parametrize("B,S,C,N", MAMBA_SWEEP)
-def test_mamba_scan_kernel(dev, B, S, C, N):
+def _mamba_args(dev, B, S, C, N):
     g = torch.Generator().manual_seed(23)
     delta = (torch.rand(B, S, C, generator=g) * 0.1).to(dev)
     u = _rand(dev, 24, B, S, C)
     A = (-torch.rand(C, N, generator=g) * 3).to(dev)
     Bm, Cm = _rand(dev, 25, B, S, N), _rand(dev, 26, B, S, N)
     h0 = _rand(dev, 27, B, C, N)
-    y, h = mamba_scan_cuda(delta, u, A, Bm, Cm, h0)
-    ry, rh = ref.mamba_scan_ref(delta, u, A, Bm, Cm, h0)
+    return delta, u, A, Bm, Cm, h0
+
+
+@pytest.mark.parametrize("B,S,C,N", MAMBA_SWEEP)
+def test_mamba_scan_kernel(dev, B, S, C, N):
+    args = _mamba_args(dev, B, S, C, N)
+    y, h = mamba_scan_cuda(*args)
+    ry, rh = ref.mamba_scan_ref(*args)
     torch.testing.assert_close(y, ry, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(h, rh, rtol=1e-5, atol=1e-6)
+    assert torch.equal(y, ry) and torch.equal(h, rh)
+
+
+@pytest.mark.parametrize("B,S,C,N", [(1, 40, 33, MAX_STATE + 1),
+                                     (2, 37, 70, 512), (1, 20, 9, 1024)])
+def test_mamba_scan_wide_state_form(dev, B, S, C, N):
+    """Past 256 states the wide-state form (passes of 256 states, each
+    step's sum carried through y) is bit-equal to the plain version, under
+    one ``mamba_scan_wide`` count and none of ``mamba_scan``."""
+    args = _mamba_args(dev, B, S, C, N)
+    _build.reset_counts()
+    y, h = mamba_scan_cuda(*args)
+    assert _build.counts()["mamba_scan_wide"] == 1
+    assert _build.counts()["mamba_scan"] == 0
+    ry, rh = ref.mamba_scan_ref(*args)
     assert torch.equal(y, ry) and torch.equal(h, rh)
 
 
@@ -566,14 +624,21 @@ def test_lm_kernel_wrappers_count_and_refuse(dev):
     assert _build.counts()["flash_attention_wide"] == 1
     with pytest.raises(ValueError, match="gradient"):
         mamba_scan_cuda(args[0].requires_grad_(), *args[1:])
+    # a state past 256 runs the wide-state form under its own count
     wide = [args[0].detach(), args[1], -_rand(dev, 42, 8, 257).abs(),
             _rand(dev, 43, 1, 6, 257), _rand(dev, 44, 1, 6, 257),
             _rand(dev, 45, 1, 8, 257)]
-    with pytest.raises(ValueError, match="registers"):
-        mamba_scan_cuda(*wide)
+    y, h = mamba_scan_cuda(*wide)
+    ry, rh = ref.mamba_scan_ref(*wide)
+    assert torch.equal(y, ry) and torch.equal(h, rh)
+    assert _build.counts()["mamba_scan_wide"] == 1
+    with pytest.raises(ValueError, match="N >= 1"):
+        mamba_scan_cuda(wide[0], wide[1], wide[2][:, :0], wide[3][..., :0],
+                        wide[4][..., :0], wide[5][..., :0])
     assert _build.counts()["flash_attention_f32"] == 1
     assert _build.counts()["flash_attention"] == 0
     assert _build.counts()["mamba_scan"] == 1
+    assert _build.counts()["mamba_scan_wide"] == 1
 
 
 @pytest.mark.parametrize("name,kernel", [("gemma2-2b", "flash_attention_f32"),
@@ -737,6 +802,7 @@ WIDE_SWEEP = [
     (1, 33, 90, 2, 1, 1024, False, 20, None),
     (2, 65, 65, 16, 2, 320, True, None, 50.0),
     (1, 1, 17, 8, 4, 512, False, None, None),
+    (1, 30, 45, 2, 1, 1100, True, 20, 50.0),
 ]
 
 
@@ -746,14 +812,18 @@ def test_flash_attention_wide_form(dev, B, Sq, Skv, Hq, Hkv, D, causal,
                                    window, cap, dtype):
     """K9 past D = 256 in its wide form against the plain version: f32 to
     rtol 1e-4, atol 1e-5; bf16 to rtol 1e-2, atol 1e-2 and a relative RMS
-    error of 1e-2.  One ``flash_attention_wide`` count, no other."""
+    error of 1e-2.  One launch of the one-pass form
+    (``flash_attention_wide``) up to D = 1024, of the two-pass form
+    (``flash_attention_wide_2pass``) past it, and no other."""
     q = _rand(dev, 90, B, Sq, Hq, D).to(dtype)
     k = _rand(dev, 91, B, Skv, Hkv, D).to(dtype)
     v = _rand(dev, 92, B, Skv, Hkv, D).to(dtype)
     _build.reset_counts()
     got = flash_attention_cuda(q, k, v, causal, window, cap)
     counts = _build.counts()
-    assert counts["flash_attention_wide"] == 1
+    one = D <= MAX_WIDE_ONE_PASS
+    assert counts["flash_attention_wide"] == int(one)
+    assert counts["flash_attention_wide_2pass"] == int(not one)
     assert counts["flash_attention"] == counts["flash_attention_f32"] == 0
     want = ref.flash_attention_ref(q, k, v, causal, window, cap)
     assert got.dtype == dtype and got.shape == want.shape

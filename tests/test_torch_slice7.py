@@ -17,9 +17,11 @@ versions.
   summed in the fixed order; bit-equal to ``ref.lb_enhanced_ref``.
 - ``ref.flash_attention_ref`` equals the Pallas kernel in interpret mode
   at head dims 320 and 512 (the JAX test's rtol 2e-3, atol 2e-3), and
-  K9's wide form (csrc/flash_attention.cu, ``flash_wide_*``) emulated
-  tile by tile in float64 (a max and sum pass, then p = exp(s - m) per
-  key tile) equals it to rtol 1e-5, atol 1e-6.
+  K9's two-pass wide form (csrc/flash_attention.cu, ``flash_wide_stats``
+  and ``flash_wide_out``, the form past D = 1024 since the one-pass form
+  of ``tests/test_torch_slice8.py``) emulated tile by tile in float64 (a
+  max and sum pass, then p = exp(s - m) per key tile) equals it to rtol
+  1e-5, atol 1e-6.
 """
 
 import jax.numpy as jnp
