@@ -11,8 +11,9 @@
    sources once more with ``-Xptxas -v`` alongside; prints a ``ptxas:``
    line (registers and spill bytes of each instantiation of K4's and K6's
    warp form, of K10 and its wide-state form, of K7, of K8 and of K9's
-   two wide forms, and the resident warps per SM of K4's, K6's, K10's and
-   K7's; any spill fails);
+   f32-arithmetic form, and the resident warps per SM of K4's, K6's,
+   K10's, K7's and K9's f32-arithmetic form, whose blocks per SM it also
+   prints; any spill fails);
 2. drives the main path once at full size -- ``build_index`` ->
    ``classify`` (which runs ``nn_search``, guards on by default) on
    N = 16384 store series of length L = 512 (w = 51, V = 4, k = 1,
@@ -102,16 +103,19 @@
    f32 and 1e-2 in bf16, where the relative RMS error must also stay
    within 1e-2; K9 also at the shapes its wrapper repairs (g = 96 in f32
    and bf16, bf16 D = 100, bf16 storage off 16-byte alignment) and its
-   wide forms: the one-pass split-D cluster form (256 < D <= 1024) at
-   D = 320 and 512 in f32 and bf16 against the plain version, SDPA at
-   D = 512 as the library time, and over a sweep of D in {257, 320, 512,
-   1024}, the two-pass form at D = 1100 (each call one launch of its
-   form); K10 at a layer of the falcon prefill and over a sweep (N in {4,
-   16, 17, 32, 64, 128, 256}, ragged S and C, nonzero h0), bit-equal, and
-   its wide-state form at N in {257, 512, 1024} and at B = 4, S = 2048,
-   C = 8192, N = 512, bit-equal; K8 also over tiles and chunks cut
-   ragged, at L = 17984, on random walks and on envelopes with lo > u and
-   +-inf bounds, with its issue floor;
+   f32-arithmetic form (every f32 call, and bf16 past D = 256: one
+   cluster of ceil(D / 128) blocks up to D = 2048, column groups past it)
+   beside SDPA in f32 at the global layer without the cap, at D = 320 and
+   512 in f32 and bf16 against the plain version, at D = 512 (S = 2048),
+   1100 and 2048 (S = 1024) in f32 with SDPA as the library time, and over
+   a sweep of D in {64, 96, 200, 256} in f32 and {257, 320, 512, 1024,
+   1100, 2048, 4100} in both types (each call one launch of
+   ``flash_attention_f32``); K10 at a layer of the falcon prefill and
+   over a sweep (N in {4, 16, 17, 32, 64, 128, 256}, ragged S and C,
+   nonzero h0), bit-equal, and its wide-state form at N in {257, 512,
+   1024} and at B = 4, S = 2048, C = 8192, N = 512, bit-equal; K8 also
+   over tiles and chunks cut ragged, at L = 17984, on random walks and on
+   envelopes with lo > u and +-inf bounds, with its issue floor;
 9. prints one ``{"kernels": [...]}`` line and, last, the device line
    ``{"ok": true, "device": {...}}``.
 
@@ -234,16 +238,9 @@ PTXAS_KERNELS = [
     (r"_Z17mamba_scan_kernelILi(\d+)ELb1E", "mamba_scan_wide", "G={}"),
     (r"_Z19sketch_bound_kernel", "sketch_bound", "kernel"),
     (r"_Z15lb_keogh_kernel", "lb_keogh", "kernel"),
-    (r"_ZN2fw17flash_wide_kernelIfE", "flash_attention_wide", "float32"),
-    (r"_ZN2fw17flash_wide_kernelI13__nv_bfloat16E", "flash_attention_wide",
+    (r"_ZN2fw16flash_f32_kernelIfE", "flash_attention_f32", "float32"),
+    (r"_ZN2fw16flash_f32_kernelI13__nv_bfloat16E", "flash_attention_f32",
      "bfloat16"),
-    (r"_Z16flash_wide_statsIfE", "flash_attention_wide_2pass",
-     "stats float32"),
-    (r"_Z16flash_wide_statsI13__nv_bfloat16E", "flash_attention_wide_2pass",
-     "stats bfloat16"),
-    (r"_Z14flash_wide_outIfE", "flash_attention_wide_2pass", "out float32"),
-    (r"_Z14flash_wide_outI13__nv_bfloat16E", "flash_attention_wide_2pass",
-     "out bfloat16"),
 ]
 
 
@@ -328,7 +325,8 @@ def occupancy_report(rep: dict) -> dict:
     occupancy calculator at its launch's block size and shared memory)
     to a ``ptxas_report``: K4's and K6's warp form at the widest band of
     each M, K10 at N = 8 G (its wide-state form past 256), K7 at the
-    sketch path's S = 16."""
+    sketch path's S = 16, K9's f32-arithmetic form (8 warps a block; its
+    blocks per SM too)."""
     from repro_torch.kernels import _build
 
     lib = _build.library()
@@ -341,6 +339,10 @@ def occupancy_report(rep: dict) -> dict:
         got["mamba_scan", f"G={g}"] = lib.mamba_scan_occupancy(8 * g)
     got["mamba_scan_wide", "G=32"] = lib.mamba_scan_occupancy(257)
     got["sketch_bound", "kernel"] = lib.sketch_bound_occupancy(16)
+    for bf16, label in ((0, "float32"), (1, "bfloat16")):
+        blocks = lib.flash_attention_cuda_cores_occupancy(bf16)
+        rep["flash_attention_f32"]["ptxas"][label]["blocks_per_sm"] = blocks
+        got["flash_attention_f32", label] = 8 * blocks
     for (name, label), warps in got.items():
         check(warps > 0, f"{name} {label}: occupancy query failed ({warps})")
         rep[name]["ptxas"][label]["resident_warps_per_sm"] = warps
@@ -368,7 +370,7 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
 # these), to pick them out of a profile
 PORT_KERNELS = ("envelope_kernel", "lb_bands_kernel", "lb_enhanced_full",
                 "lb_enhanced_pairwise", "dtw_band", "sketch_bound_kernel",
-                "lb_keogh_kernel", "flash_fwd", "flash_wide",
+                "lb_keogh_kernel", "flash_fwd", "flash_f32",
                 "mamba_scan_kernel")
 
 
@@ -2067,7 +2069,7 @@ def lm_kernel_phases(torch, dev, windows, lm_recs, ptxas):
     import torch.nn.functional as F
 
     from repro_torch.kernels import _build, ref
-    from repro_torch.kernels.flash_attention import (MAX_WIDE_ONE_PASS,
+    from repro_torch.kernels.flash_attention import (MAX_HEAD_DIM,
                                                      flash_attention_cuda)
     from repro_torch.kernels.mamba_scan import MAX_STATE, mamba_scan_cuda
 
@@ -2216,6 +2218,7 @@ def lm_kernel_phases(torch, dev, windows, lm_recs, ptxas):
     bms32, by32 = bound((2 * qf.numel() + 2 * kf.numel()) * 4,
                         4.0 * B9 * Hq9 * D9 * attn_pairs(Sq9, kf.shape[1],
                                                          cg, wg9))
+    qft, kft, vft = (x.transpose(1, 2) for x in (qf, kf, vf))
     out.append(dict(
         name="flash_attention_f32", route="cuda",
         source="src/repro_torch/csrc/flash_attention.cu",
@@ -2223,32 +2226,43 @@ def lm_kernel_phases(torch, dev, windows, lm_recs, ptxas):
         **path_launches("flash_attention_f32"),
         max_abs_err=max(err32, err_sweep["float32"]),
         ms=time_ms(lambda: flash_attention_cuda(qf, kf, vf, cg, wg9, capg),
-                   2, warmup=1),
+                   5, warmup=1),
         plain_ms=time_ms(lambda: ref.flash_attention_ref(qf, kf, vf, cg,
                                                          wg9, capg), 2,
                          warmup=1),
-        bound_ms=bms32, bound_by=by32, library_ms=None,
-        form="f32: CUDA cores", repaired_g96_max_abs_err=repaired["g96_f32"],
+        bound_ms=bms32, bound_by=by32,
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            qft, kft, vft, is_causal=True, enable_gqa=True), 5, warmup=1),
+        library_call="F.scaled_dot_product_attention(is_causal=True, "
+                     "enable_gqa=True) at the same f32 inputs without the "
+                     "cap (SDPA has no soft cap)",
+        nocap_ms=time_ms(lambda: flash_attention_cuda(qf, kf, vf, cg, wg9,
+                                                      None), 5, warmup=1),
+        form="f32 arithmetic on CUDA cores: one cluster of ceil(D / 128) "
+             "blocks split along D (2 at D = 256), each row's softmax on "
+             "its owning block", repaired_g96_max_abs_err=repaired["g96_f32"],
         shape=f"the global layer's inputs in f32, cap={capg}",
-        bound_peak="FP32 non-tensor 67 TFLOP/s, HBM 3.35 TB/s"))
+        bound_peak="FP32 non-tensor 67 TFLOP/s, HBM 3.35 TB/s",
+        **ptxas.get("flash_attention_f32", {})))
+    del qft, kft, vft
     del qf, kf, vf
 
-    # ---- K9's wide form (D > 256, f32 or bf16 inputs, computed in f32) ----
-    # No configuration reaches it (gemma2-2b's d_head 256 is the largest):
-    # a causal prefill of gemma2-2b's geometry otherwise (B = 1, S = 2048,
-    # Hq = 8, Hkv = 4) at D = 320 and 512 in both types with the cap, and
-    # at D = 512 in f32 without it, the function SDPA also computes
-    def wide_run(xs, causal, win, cap, label):
-        """One call, which must be one launch of the form that takes its
-        head dim, and its check against the plain version."""
+    # ---- K9's f32-arithmetic form past D = 256 (f32 or bf16 inputs) ------
+    # No configuration reaches D > 256 (gemma2-2b's d_head 256 is the
+    # largest): a causal prefill of gemma2-2b's geometry otherwise (B = 1,
+    # Hq = 8, Hkv = 4) at S = 2048 with D = 320 and 512 in both types with
+    # the cap, and in f32 without it, the function SDPA also computes, at
+    # D = 512 (S = 2048) and D = 1100 and 2048 (S = 1024)
+    def f32_run(xs, causal, win, cap, label):
+        """One call, which must be one launch of the f32-arithmetic form,
+        and its check against the plain version."""
         _build.reset_counts()
         got9 = flash_attention_cuda(*xs, causal, win, cap)
-        name9 = "flash_attention_wide" if xs[0].shape[3] <= \
-            MAX_WIDE_ONE_PASS else "flash_attention_wide_2pass"
         got_counts = {k: v for k, v in _build.counts().items() if v}
-        check(got_counts == {name9: 1},
-              f"K9 {label}: launches {got_counts}, expected one of {name9}")
-        return k9_compare(f"{name9} {label}", got9,
+        check(got_counts == {"flash_attention_f32": 1},
+              f"K9 {label}: launches {got_counts}, expected one of "
+              "flash_attention_f32")
+        return k9_compare(f"flash_attention_f32 {label}", got9,
                           ref.flash_attention_ref(*xs, causal, win, cap))
 
     wide_err = {}
@@ -2257,86 +2271,83 @@ def lm_kernel_phases(torch, dev, windows, lm_recs, ptxas):
         xw = [randn(1, 2048, H, Dw) for H in (8, 4, 4)]
         for dts in ("float32", "bfloat16"):
             xs = [x.to(getattr(torch, dts)) for x in xw]
-            r = wide_run(xs, True, None, 50.0, f"D={Dw} {dts}")
+            r = f32_run(xs, True, None, 50.0, f"D={Dw} {dts}")
             wide_err[f"D{Dw}_{dts}"] = r["max_abs_err"] \
                 if dts == "float32" else r["rel_rms_err"]
             wide_ms[f"D{Dw}_{dts}"] = time_ms(
                 lambda: flash_attention_cuda(*xs, True, None, 50.0), 3,
                 warmup=1)
-    # a sweep past D = 256: ragged and unequal Sq / Skv, g in {1, 2, 8},
-    # causal and not, window, cap, each in f32 and bf16; D = 1100 past the
-    # one-pass form's 1024 runs the two-pass form
+    # a sweep: ragged and unequal Sq / Skv, g in {1, 2, 8}, causal and not,
+    # window, cap; f32 at D <= 256 (clusters of 1 and 2 blocks), f32 and
+    # bf16 past it (one cluster up to D = 2048, 16 blocks; column groups
+    # past it: D = 4100 in 3 groups of 11 blocks)
+    f32_sweep = {"float32": 0.0, "bfloat16": 0.0}
     for (Bs, Sq, Skv, Hq, Hkv, D, causal, win, cap) in [
+            (2, 40, 40, 2, 2, 64, True, None, None),
+            (1, 77, 77, 8, 4, 96, True, 16, 30.0),
+            (1, 100, 70, 8, 1, 200, False, None, 50.0),
+            (2, 65, 65, 16, 2, 256, True, None, 50.0),
             (2, 40, 40, 2, 2, 257, True, None, None),
             (1, 77, 77, 8, 4, 320, True, 16, 30.0),
             (1, 100, 70, 8, 1, 512, False, None, 50.0),
             (1, 33, 90, 2, 1, 1024, False, 20, None),
             (2, 65, 65, 16, 2, 320, True, None, 50.0),
-            (1, 30, 45, 2, 1, 1100, True, 20, 50.0)]:
+            (1, 30, 45, 2, 1, 1100, True, 20, 50.0),
+            (1, 30, 45, 2, 1, 2048, True, 20, 50.0),
+            (1, 40, 40, 4, 2, 4100, True, None, None)]:
         xw = [randn(Bs, Sq, Hq, D), randn(Bs, Skv, Hkv, D),
               randn(Bs, Skv, Hkv, D)]
-        for dts in ("float32", "bfloat16"):
+        for dts in ("float32", "bfloat16")[:1 if D <= MAX_HEAD_DIM else 2]:
             xs = [x.to(getattr(torch, dts)) for x in xw]
-            wide_run(xs, causal, win, cap,
-                     f"sweep {(Bs, Sq, Skv, Hq, Hkv, D)} {dts}")
-    qw, kw_, vw = randn(1, 2048, 8, 512), randn(1, 2048, 4, 512), \
-        randn(1, 2048, 4, 512)
-    errw = wide_run([qw, kw_, vw], True, None, None, "D=512 float32 no cap")
-    bmsw, byw = bound((2 * qw.numel() + 2 * kw_.numel()) * 4,
-                      4.0 * 8 * 512 * attn_pairs(2048, 2048, True, None))
-    qwt, kwt, vwt = (x.transpose(1, 2) for x in (qw, kw_, vw))
-    out.append(dict(
-        name="flash_attention_wide", route="cuda",
-        source="src/repro_torch/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention.py:119",
-        **path_launches("flash_attention_wide"),
-        max_abs_err=errw["max_abs_err"],
-        ms=time_ms(lambda: flash_attention_cuda(qw, kw_, vw, True), 5,
-                   warmup=1),
-        plain_ms=time_ms(lambda: ref.flash_attention_ref(qw, kw_, vw, True),
-                         3, warmup=1),
-        bound_ms=bmsw, bound_by=byw,
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            qwt, kwt, vwt, is_causal=True, enable_gqa=True), 5, warmup=1),
-        library_call="F.scaled_dot_product_attention(is_causal=True, "
-                     "enable_gqa=True) at the same inputs",
-        form="256 < D <= 1024: one pass in f32 on CUDA cores over a cluster "
-             "of ceil(D / 128) blocks split along D, partial scores summed "
-             "through distributed shared memory in rank order",
-        shape="B=1 S=2048 Hq=8 Hkv=4 D=512 float32 causal, no cap",
-        bound_peak="FP32 non-tensor 67 TFLOP/s, HBM 3.35 TB/s",
+            r = f32_run(xs, causal, win, cap,
+                        f"sweep {(Bs, Sq, Skv, Hq, Hkv, D)} {dts}")
+            key = "max_abs_err" if dts == "float32" else "rel_rms_err"
+            f32_sweep[dts] = max(f32_sweep[dts], r[key])
+
+    def f32_row(D, S, reps, extra):
+        """The f32 form at B = 1, Hq = 8, Hkv = 4, head dim D, causal, no
+        cap, against the plain version, SDPA beside it."""
+        qw, kw_, vw = randn(1, S, 8, D), randn(1, S, 4, D), randn(1, S, 4, D)
+        errw = f32_run([qw, kw_, vw], True, None, None,
+                       f"D={D} S={S} float32 no cap")
+        bmsw, byw = bound((2 * qw.numel() + 2 * kw_.numel()) * 4,
+                          4.0 * 8 * D * attn_pairs(S, S, True, None))
+        qwt, kwt, vwt = (x.transpose(1, 2) for x in (qw, kw_, vw))
+        n_ch = -(-D // 128)
+        n_g = -(-n_ch // 16)
+        return dict(
+            name=f"flash_attention_f32_d{D}", route="cuda",
+            source="src/repro_torch/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:119",
+            count="flash_attention_f32",
+            **path_launches("flash_attention_f32"),
+            max_abs_err=errw["max_abs_err"],
+            ms=time_ms(lambda: flash_attention_cuda(qw, kw_, vw, True),
+                       reps, warmup=1),
+            plain_ms=time_ms(lambda: ref.flash_attention_ref(qw, kw_, vw,
+                                                             True),
+                             3, warmup=1),
+            bound_ms=bmsw, bound_by=byw,
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                qwt, kwt, vwt, is_causal=True, enable_gqa=True), reps,
+                warmup=1),
+            library_call="F.scaled_dot_product_attention(is_causal=True, "
+                         "enable_gqa=True) at the same inputs",
+            form=f"f32 arithmetic on CUDA cores: {n_g} group(s) of "
+                 f"{-(-n_ch // n_g)} blocks a cluster over {n_ch} chunks "
+                 "of 128 columns",
+            shape=f"B=1 S={S} Hq=8 Hkv=4 D={D} float32 causal, no cap",
+            bound_peak="FP32 non-tensor 67 TFLOP/s, HBM 3.35 TB/s",
+            tol=K9_TOL, **extra)
+
+    out.append(f32_row(512, 2048, 5, dict(
         cap50_ms=wide_ms, cap50_err=wide_err,
         cap50_err_kind="f32: max abs error; bf16: relative RMS error",
-        tol=K9_TOL, bf16_rel_rms_tol=K9_BF16_REL_RMS,
-        **ptxas.get("flash_attention_wide", {})))
-    del qw, kw_, vw, qwt, kwt, vwt
-    # the two-pass form past D = 1024, at half the sequence
-    D2 = 1100
-    q2, k2, v2 = randn(1, 1024, 8, D2), randn(1, 1024, 4, D2), \
-        randn(1, 1024, 4, D2)
-    err2 = wide_run([q2, k2, v2], True, None, None, f"D={D2} float32")
-    q2t, k2t, v2t = (x.transpose(1, 2) for x in (q2, k2, v2))
-    out.append(dict(
-        name="flash_attention_wide_2pass", route="cuda",
-        source="src/repro_torch/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention.py:119",
-        **path_launches("flash_attention_wide_2pass"),
-        max_abs_err=err2["max_abs_err"],
-        ms=time_ms(lambda: flash_attention_cuda(q2, k2, v2, True), 2,
-                   warmup=1),
-        plain_ms=time_ms(lambda: ref.flash_attention_ref(q2, k2, v2, True),
-                         2, warmup=1),
-        **dict(zip(("bound_ms", "bound_by"), bound(
-            (2 * q2.numel() + 2 * k2.numel()) * 4,
-            4.0 * 8 * D2 * attn_pairs(1024, 1024, True, None)))),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            q2t, k2t, v2t, is_causal=True, enable_gqa=True), 2, warmup=1),
-        form="D > 1024: two passes in f32 on CUDA cores (row max and sum, "
-             "then P V per 128 output columns), shared memory fixed in D",
-        shape=f"B=1 S=1024 Hq=8 Hkv=4 D={D2} float32 causal, no cap",
-        bound_peak="FP32 non-tensor 67 TFLOP/s, HBM 3.35 TB/s",
-        **ptxas.get("flash_attention_wide_2pass", {})))
-    del q2, k2, v2, q2t, k2t, v2t
+        sweep_max_abs_err_f32=f32_sweep["float32"],
+        sweep_max_rel_rms_err_bf16=f32_sweep["bfloat16"],
+        bf16_rel_rms_tol=K9_BF16_REL_RMS)))
+    out.append(f32_row(1100, 1024, 5, {}))
+    out.append(f32_row(2048, 1024, 5, {}))
 
     # ---- K10 selective scan (falcon-mamba-7b's prefill) -------------------
     args = lm_recs["mamba_scan"]

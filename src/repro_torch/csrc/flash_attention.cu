@@ -1,22 +1,18 @@
 // K9: fused attention forward with online softmax (GQA, causal, sliding
 // window, score soft-cap).  q (B, Sq, Hq, D), k and v (B, Skv, Hkv, D)
 // -> o (B, Sq, Hq, D) in q's type.  Positions are implicit: query row i
-// attends key rows <= i (causal) and > i - window.  Three forms
-// (kernels/flash_attention.py picks): for D <= 256 by the input type,
+// attends key rows <= i (causal) and > i - window.  Two forms
+// (kernels/flash_attention.py:k9_form picks):
 //
-//   bfloat16  flash_fwd_wgmma: tensor cores (wgmma), K/V tiles by TMA
-//             (below, after the f32 form);
-//   float32   flash_fwd_kernel: CUDA cores in f32 (this part), which the
-//             f32 sweep's 1e-4 tolerance needs (neither bf16 nor TF32
-//             products meet it);
-//
-// and for D > 256, either type, in f32 (at the end of the file):
-// flash_wide_kernel up to D = 1024, one pass over a thread-block cluster
-// split along D; past it flash_wide_stats + flash_wide_out, two passes
-// whose shared memory is fixed in D.
+//   bfloat16, D <= 256  flash_fwd_wgmma: tensor cores (wgmma), K/V tiles
+//                       by TMA (first below);
+//   otherwise           fw::flash_f32_kernel: f32 arithmetic on CUDA
+//                       cores, any head dim, f32 or bf16 inputs (at the
+//                       end of the file); the f32 tolerance (1e-4) is
+//                       below what bf16 or TF32 products reach.
 //
 // Replaces src/repro/kernels/flash_attention.py:flash_attention_pallas
-// (_flash_fwd_kernel).  Bound on this card: operations -- 4 D per
+// (its Pallas kernel body).  Bound on this card: operations -- 4 D per
 // unmasked (query head, key) pair, against q, k, v and o read or written
 // once (at gemma2-2b's B = 2, S = 8192, Hq = 8, Hkv = 4, D = 256 a global
 // layer is ~0.55 TFLOP against ~0.2 GB).  Both forms fold the g query
@@ -24,22 +20,16 @@
 // into its tile rows (row r = query q0 + r / g, head hk g + r % g), so a
 // K/V tile is read once for all g heads; key tiles wholly outside the
 // causal wedge or the window are never loaded; ragged Sq and Skv are
-// bounds checks (f32) or the TMA's zero fill (bf16); nothing is padded
-// in device memory.
+// bounds checks (f32 arithmetic) or the TMA's zero fill (bf16); nothing
+// is padded in device memory.
 //
 // Semantics of the reference kept: cap * tanh(s / cap) before the mask;
 // masked scores take the finite -2.3819763e38 (so a row's first
 // all-masked tile is wiped by the first real score's alpha = 0, as in
-// the reference); l is floored at 1e-30 in the final divide.  The f32
-// form scales q by D**-0.5 in f32 before the product, as the reference.
-// The D-sum and the key-sum run in another order than the plain
-// version's, so the two agree to a tolerance, not bit for bit.
-//
-// The f32 form, simple first: one block of 256 threads per (batch x kv
-// head, query tile of 64 folded rows); the scaled query rows stay in
-// shared memory in f32; the block walks key tiles of FA_TK rows (staged
-// in shared memory in f32) with the online-softmax state (m, l) per row
-// in shared memory and acc in registers.
+// the reference); l is floored at 1e-30 in the final divide.  The
+// f32-arithmetic form scales q by D**-0.5 in f32 before the product, as
+// the reference.  The D-sum and the key-sum run in another order than the
+// plain version's, so the two agree to a tolerance, not bit for bit.
 #include <cuda.h>
 #include <cuda_bf16.h>
 
@@ -47,7 +37,6 @@
 #include "wgmma.cuh"
 
 #define FA_R 64            // folded (query, head) rows per block
-#define FA_TK 32           // key rows per tile
 #define FA_THREADS 256
 #define FA_NEG (-2.3819763e38f)
 
@@ -58,226 +47,6 @@ __device__ __forceinline__ float fa_load(const __nv_bfloat16* p) {
 }
 __device__ __forceinline__ void fa_store(__nv_bfloat16* p, float x) {
     *p = __float2bfloat16(x);           // round to nearest even
-}
-
-template <int DMAX>
-constexpr int fa_smem_floats() {
-    return FA_R * (DMAX + 1) + FA_TK * (DMAX + 1) + FA_TK * DMAX
-           + FA_R * (FA_TK + 1) + 3 * FA_R;
-}
-
-template <typename T, int DMAX>
-__global__ void __launch_bounds__(FA_THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int Sq,
-                 int Skv, int Hq, int Hkv, int D, int g, int tq, int causal,
-                 int window, float cap, float scale) {
-    constexpr int QS = DMAX + 1;        // padded stride of q and k rows
-    constexpr int PS = FA_TK + 1;
-    constexpr int ND = DMAX / 32;       // head-dim columns per thread
-    extern __shared__ float smem[];
-    float* q_sh = smem;                 // [FA_R][QS]
-    float* k_sh = q_sh + FA_R * QS;     // [FA_TK][QS]
-    float* v_sh = k_sh + FA_TK * QS;    // [FA_TK][DMAX]
-    float* p_sh = v_sh + FA_TK * DMAX;  // [FA_R][PS] scores, then probs
-    float* m_sh = p_sh + FA_R * PS;     // [FA_R] running max
-    float* l_sh = m_sh + FA_R;          // [FA_R] running normaliser
-    float* a_sh = l_sh + FA_R;          // [FA_R] this tile's rescale
-
-    const int tid = threadIdx.x;
-    const int lane = tid & 31, warp = tid >> 5;
-    const int b = blockIdx.x / Hkv, hk = blockIdx.x % Hkv;
-    const int q0 = blockIdx.y * tq;
-    const int nq = min(tq, Sq - q0);    // valid queries of the tile
-    const int rows = tq * g;
-
-    // the scaled query rows, zero past the valid ones
-    for (int e = tid; e < FA_R * D; e += FA_THREADS) {
-        const int r = e / D, d = e % D;
-        float x = 0.f;
-        if (r < rows && r / g < nq) {
-            const int qi = q0 + r / g, h = hk * g + r % g;
-            x = fa_load(q + (((size_t)b * Sq + qi) * Hq + h) * D + d) * scale;
-        }
-        q_sh[r * QS + d] = x;
-    }
-    for (int r = tid; r < FA_R; r += FA_THREADS) {
-        m_sh[r] = FA_NEG;
-        l_sh[r] = 0.f;
-    }
-    float acc[8][ND];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < ND; ++j) acc[i][j] = 0.f;
-
-    // key tiles that hold an unmasked (valid query, key) pair
-    int kbeg = 0, kend = Skv;
-    if (causal) kend = min(Skv, q0 + nq);
-    if (window > 0) kbeg = max(0, q0 - window + 1);
-    kbeg = (kbeg / FA_TK) * FA_TK;
-
-    const int tr = tid >> 4, tc = tid & 15;     // score micro-tile
-    for (int k0 = kbeg; k0 < kend; k0 += FA_TK) {
-        __syncthreads();                // the last tile's k, v, p are read
-        for (int e = tid; e < FA_TK * D; e += FA_THREADS) {
-            const int j = e / D, d = e % D;
-            const int kj = k0 + j;
-            float kx = 0.f, vx = 0.f;
-            if (kj < Skv) {
-                const size_t off = (((size_t)b * Skv + kj) * Hkv + hk) * D + d;
-                kx = fa_load(k + off);
-                vx = fa_load(v + off);
-            }
-            k_sh[j * QS + d] = kx;
-            v_sh[j * DMAX + d] = vx;
-        }
-        for (int e = tid; e < FA_TK * (DMAX - D); e += FA_THREADS)
-            v_sh[(e / (DMAX - D)) * DMAX + D + e % (DMAX - D)] = 0.f;
-        __syncthreads();
-
-        // scores: rows tr*4 .. tr*4+3, key columns tc and tc + 16
-        float s[4][2];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) s[i][0] = s[i][1] = 0.f;
-#pragma unroll 4
-        for (int d = 0; d < D; ++d) {
-            const float k0v = k_sh[tc * QS + d];
-            const float k1v = k_sh[(tc + 16) * QS + d];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-                const float qv = q_sh[(tr * 4 + i) * QS + d];
-                s[i][0] += qv * k0v;
-                s[i][1] += qv * k1v;
-            }
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            const int r = tr * 4 + i;
-            const int qi = q0 + r / g;
-#pragma unroll
-            for (int jj = 0; jj < 2; ++jj) {
-                const int c = tc + 16 * jj;
-                const int kj = k0 + c;
-                float x = s[i][jj];
-                if (cap > 0.f) x = cap * tanhf(x / cap);
-                const int dp = qi - kj;
-                bool ok = kj < Skv;
-                if (causal) ok = ok && dp >= 0;
-                if (window > 0) ok = ok && dp < window;
-                p_sh[r * PS + c] = ok ? x : FA_NEG;
-            }
-        }
-        __syncthreads();
-
-        // online softmax: warp w takes rows 8w .. 8w+7, lane = key column
-        for (int i = 0; i < 8; ++i) {
-            const int r = warp * 8 + i;
-            const float x = p_sh[r * PS + lane];
-            float mx = x;
-            for (int off = 16; off > 0; off >>= 1)
-                mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-            const float m_prev = m_sh[r];
-            const float m_new = fmaxf(m_prev, mx);
-            const float p = expf(x - m_new);
-            float sum = p;
-            for (int off = 16; off > 0; off >>= 1)
-                sum += __shfl_xor_sync(0xffffffffu, sum, off);
-            p_sh[r * PS + lane] = p;
-            __syncwarp();
-            if (lane == 0) {
-                const float alpha = expf(m_prev - m_new);
-                l_sh[r] = l_sh[r] * alpha + sum;
-                m_sh[r] = m_new;
-                a_sh[r] = alpha;
-            }
-        }
-        __syncthreads();
-
-        // acc = acc * alpha + p v: rows warp + 8 i, columns lane + 32 j
-        // (the tile's products are added into the rescaled acc one key at
-        // a time)
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-            const float alpha = a_sh[warp + 8 * i];
-#pragma unroll
-            for (int j = 0; j < ND; ++j) acc[i][j] *= alpha;
-        }
-        for (int c = 0; c < FA_TK; ++c) {
-            float vv[ND];
-#pragma unroll
-            for (int j = 0; j < ND; ++j)
-                vv[j] = v_sh[c * DMAX + lane + 32 * j];
-#pragma unroll
-            for (int i = 0; i < 8; ++i) {
-                const float p = p_sh[(warp + 8 * i) * PS + c];
-#pragma unroll
-                for (int j = 0; j < ND; ++j) acc[i][j] += p * vv[j];
-            }
-        }
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-        const int r = warp + 8 * i;
-        if (r >= rows || r / g >= nq) continue;
-        const int qi = q0 + r / g, h = hk * g + r % g;
-        const float den = fmaxf(l_sh[r], 1e-30f);
-        T* orow = o + (((size_t)b * Sq + qi) * Hq + h) * D;
-#pragma unroll
-        for (int j = 0; j < ND; ++j) {
-            const int d = lane + 32 * j;
-            if (d < D) fa_store(orow + d, acc[i][j] / den);
-        }
-    }
-}
-
-template <typename T, int DMAX>
-static int flash_launch_t(const void* q, const void* k, const void* v,
-                          void* o, int B, int Sq, int Skv, int Hq, int Hkv,
-                          int D, int causal, int window, float cap,
-                          float scale, cudaStream_t stream) {
-    const int g = Hq / Hkv;
-    const int tq = FA_R / g;
-    const int smem = fa_smem_floats<DMAX>() * (int)sizeof(float);
-    auto kern = flash_fwd_kernel<T, DMAX>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    dim3 grid(B * Hkv, (Sq + tq - 1) / tq);
-    kern<<<grid, FA_THREADS, smem, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (T*)o, Sq, Skv, Hq, Hkv, D,
-        g, tq, causal, window, cap, scale);
-    return (int)cudaGetLastError();
-}
-
-template <typename T>
-static int flash_launch_d(const void* q, const void* k, const void* v,
-                          void* o, int B, int Sq, int Skv, int Hq, int Hkv,
-                          int D, int causal, int window, float cap,
-                          float scale, cudaStream_t s) {
-    if (D <= 64)
-        return flash_launch_t<T, 64>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D,
-                                     causal, window, cap, scale, s);
-    if (D <= 128)
-        return flash_launch_t<T, 128>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D,
-                                      causal, window, cap, scale, s);
-    return flash_launch_t<T, 256>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D,
-                                  causal, window, cap, scale, s);
-}
-
-// window <= 0: none; cap <= 0: none.  The wrapper
-// (kernels/flash_attention.py) has checked D <= 256, Hq % Hkv == 0 and
-// Hq / Hkv <= FA_R.
-extern "C" int flash_attention_f32_launch(const void* q, const void* k,
-                                          const void* v, void* o, int B,
-                                          int Sq, int Skv, int Hq, int Hkv,
-                                          int D, int causal, int window,
-                                          float cap, float scale,
-                                          void* stream) {
-    return flash_launch_d<float>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, causal,
-                                 window, cap, scale, (cudaStream_t)stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -712,87 +481,124 @@ extern "C" int flash_attention_bf16_launch(const void* q, const void* k,
 }
 
 // ---------------------------------------------------------------------------
-// The wide form: any head dim D > 256, f32 or bf16 inputs, computed in f32
-// on CUDA cores.  Both forms above keep a block's query rows (and the bf16
-// form its K/V tiles) in shared memory sized by D, which does not fit past
-// D = 256.  Semantics as the f32 form: q scaled by D**-0.5 in f32 before
-// the product, f32 accumulation, cap before mask, the finite FA_NEG for
-// masked scores, causal and window with key tiles outside them skipped,
-// the online softmax, l floored at 1e-30; bf16 inputs are read as bf16 and
-// converted, the output rounded to bf16 once.  On no path (no
-// configuration has d_head > 256).
+// The f32-arithmetic form (launch count flash_attention_f32): every f32
+// call, at any head dim, and every bf16 call past D = 256, computed in f32
+// on CUDA cores; bf16 inputs are read as bf16 and converted, the output
+// rounded to bf16 once.  Semantics as the reference: q scaled by D**-0.5
+// in f32 before the product, f32 accumulation, cap before mask, the
+// finite FA_NEG for masked scores, causal and window with key tiles
+// outside them skipped, the online softmax, l floored at 1e-30.
 //
-// flash_wide_kernel, D <= 1024 (launch count flash_attention_wide): one
-// pass, a thread-block cluster split along D.  A cluster of
-// n_c = ceil(D / DS) blocks (DS = 128 columns each, n_c <= 8, the portable
-// cluster size) shares one query tile of FA_R = 64 folded rows; block r
-// owns the columns [128 r, 128 r + 128).
+// D is cut into n_ch = ceil(D / DS) chunks of DS = 128 columns.  A
+// thread-block cluster of n_c blocks shares one query tile of FA_R = 64
+// folded rows, and the grid's z dimension splits the output columns into
+// n_g groups:
 //
-//   - It stages its columns of the scaled Q tile in shared memory once for
-//     the whole key loop.
-//   - Per key tile of BK = 64 keys it loads its columns of K, computes the
-//     partial scores over them (4 x 4 a thread, float4 shared loads along
-//     D: 8 loads per 64 FMAs) and writes them to its own shared memory.
-//   - One cluster barrier, in two halves: the block arrives, loads its
-//     columns of V over K's while the others arrive, then waits.
-//   - Each block sums the n_c partials through distributed shared memory
-//     (cluster.map_shared_rank) in rank order 0 .. n_c - 1, so every block
-//     of the cluster holds bit-identical scores, maxima, sums and
-//     probabilities; it applies the cap and the masks, runs the online
-//     softmax (a row's 64 keys over 4 lanes) and accumulates its 64 x 128
-//     slice of O in registers (8 x 4 a thread).
-//   - The partial-score buffers are double-buffered: a block rewrites a
-//     buffer two tiles later, after the next barrier, by which every block
-//     has read it, so one cluster barrier a key tile suffices; the
-//     probabilities go to the buffer of the tile before, free by then.
+//   n_g = ceil(n_ch / MAX_CLUSTER),   n_c = ceil(n_ch / n_g),
 //
-// So each score is computed once, Q, K and V are read once per query tile,
-// and there is one launch and no scratch in device memory.  Shared memory:
-// 103 KB a block; two blocks an SM (<= 128 registers, which holding V in
-// registers across the sum would exceed).
+// MAX_CLUSTER = 16 being the H100's non-portable cluster size (past 8
+// blocks the launch allows it with
+// cudaFuncAttributeNonPortableClusterSizeAllowed).  So up to D = 2048 one
+// cluster covers D: n_c = 1 at D <= 128, 2 at D <= 256 (gemma2-2b's f32
+// layers), 9 at D = 1100, 16 at D = 2048.  Block r of group z
 //
-// Past D = 1024 the two-pass form below runs (flash_wide_stats +
-// flash_wide_out, launch count flash_attention_wide_2pass): its shared
-// memory is fixed in D, at the price of computing S = Q K^T 1 + D / 128
-// times.
+//   - owns the output chunk z n_c + r (none when that is past n_ch): its
+//     64 x 128 slice of O, accumulated in registers (8 x 4 a thread);
+//   - computes partial scores over the chunks r, r + n_c, r + 2 n_c, ...
+//     < n_ch, in that order (4 x 4 a thread, float4 shared loads along D:
+//     8 loads per 64 FMAs);
+//   - owns the softmax of rows [r R, r R + R), R = ceil(64 / n_c): it sums
+//     their n_c partial scores through distributed shared memory
+//     (cluster.map_shared_rank) in rank order 0 .. n_c - 1, applies the
+//     cap and the masks and runs their online softmax (a row's 64 keys
+//     over 4 lanes), keeping their m and l.
+//
+// The score chunks of a rank are the same in every group, so every group
+// computes the same scores and softmax, bit for bit, each score being
+// computed n_g = ceil(D / 2048) times: once up to D = 2048.  Every block
+// of a cluster takes its probabilities and rescale factors from the rows'
+// owners, so all hold the same ones.
+//
+// Per key tile of BK = 64 keys: the block stages its score chunks of K
+// (with one score chunk, up to D = 2048, its slice of the scaled Q tile
+// stays in shared memory for the whole key loop; past it the Q chunk is
+// staged beside each K chunk) and writes its partial scores to its own
+// shared memory.  Cluster barrier A, in two halves: the block arrives,
+// loads its chunk of V over K's while the others arrive, then waits.  The
+// owners' softmax writes each row's probabilities and rescale factor
+// (column 64) over the row's partials in the owner's buffer.  Cluster
+// barrier B; each block copies the 64 rows from their owners into its
+// other buffer and accumulates O = O * alpha + P V.  Each block reads
+// 64 x 64 partials and 64 x 64 probabilities through distributed shared
+// memory a tile, whatever n_c (a first design in which every block summed
+// all n_c partials of every row read n_c times as many; it ran D = 1100
+// at 2.70 ms and D = 2048 at 8.19 ms, scripts/k9_probe.py on one H100).
+// The buffers are double-buffered by tile: a block rewrites a buffer two
+// barriers after every other block has read it.  With n_c = 1 barrier B
+// is a block barrier and P is read where it was written.
+//
+// One launch and no scratch in device memory; Q, K and V are read once
+// per query tile and group.  Shared memory: 103 KB a block, two blocks an
+// SM at <= 128 registers.
+//
+// Two designs measured against this one on one H100 (700 W;
+// scripts/k9_probe.py, the same call): K and V staged by cp.async into a
+// second buffer while the scores are computed (137 KB a block, one block
+// an SM) ran 22.6 ms against 19.0 at gemma2-2b's global layer in f32
+// (D = 256, S = 8192) and 2.34 against 1.82 ms at D = 512, S = 2048, both
+// slower: the second block an SM hides the loads better than the copy
+// engine does.  A block owning 256 columns (no cluster at D = 256) was not
+// built: its 8 x 8 output tile and 4 x 8 score tile need more than the
+// 128 registers of two blocks an SM, and its Q and K slices 2 x 66 KB.
 #include <cooperative_groups.h>
 
 namespace fw {
 
 namespace cg = cooperative_groups;
 
-constexpr int DS = 128;                 // D columns a block of the cluster
+constexpr int DS = 128;                 // D columns of a chunk
 constexpr int BK = 64;                  // keys a tile
-constexpr int MAX_CLUSTER = 8;          // D <= DS * MAX_CLUSTER = 1024
+constexpr int MAX_CLUSTER = 16;         // blocks a cluster (non-portable > 8)
 constexpr int ST = DS + 4;              // row stride of the Q, K, V slices
-constexpr int PS = BK + 4;              // row stride of the score buffers
-// q [FA_R][ST], k or v [BK][ST], two score buffers [FA_R][PS], m, l, alpha
-constexpr int SMEM_FLOATS = FA_R * ST + BK * ST + 2 * FA_R * PS + 3 * FA_R;
-constexpr int SMEM_BYTES = SMEM_FLOATS * 4;
+constexpr int PS = BK + 4;              // row stride of the score buffers;
+                                        // column BK holds a row's alpha
+// float4s of a K or V slice each thread stages
+constexpr int KV_VEC = BK * DS / 4 / FA_THREADS;
+static_assert(DS == 128 && KV_VEC == 8, "the staging loops index by 32");
+// q [FA_R][ST], k or v [BK][ST], two score buffers [FA_R][PS], m, l
+constexpr int SMEM_BYTES = 4 * (FA_R * ST + BK * ST + 2 * FA_R * PS
+                                + 2 * FA_R);
+
+// the split of D: n_ch chunks, n_g column groups, n_c blocks a cluster
+struct Split {
+    int nch, ng, nc;
+};
+inline Split split_d(int D) {
+    const int nch = (D + DS - 1) / DS;
+    const int ng = (nch + MAX_CLUSTER - 1) / MAX_CLUSTER;
+    return {nch, ng, (nch + ng - 1) / ng};
+}
+
+__device__ __forceinline__ float4 load4v(const float* p) {
+    return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4v(const __nv_bfloat16* p) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const float2 a =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+    const float2 b =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+    return make_float4(a.x, a.y, b.x, b.y);
+}
 
 // n (<= 4) elements from p as a float4, zeros past them; vec: all four,
 // one aligned vector load
-__device__ __forceinline__ float4 load4(const float* p, int n, bool vec) {
-    if (vec && n >= 4) return *reinterpret_cast<const float4*>(p);
+template <typename T>
+__device__ __forceinline__ float4 load4(const T* p, int n, bool vec) {
+    if (vec && n >= 4) return load4v(p);
     float x[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) x[i] = i < n ? p[i] : 0.f;
-    return make_float4(x[0], x[1], x[2], x[3]);
-}
-
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p, int n,
-                                        bool vec) {
-    if (vec && n >= 4) {
-        const uint2 raw = *reinterpret_cast<const uint2*>(p);
-        const float2 a = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-        const float2 b = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-        return make_float4(a.x, a.y, b.x, b.y);
-    }
-    float x[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) x[i] = i < n ? __bfloat162float(p[i]) : 0.f;
+    for (int i = 0; i < 4; ++i) x[i] = i < n ? fa_load(p + i) : 0.f;
     return make_float4(x[0], x[1], x[2], x[3]);
 }
 
@@ -800,67 +606,82 @@ __device__ __forceinline__ float4 scale4(float4 x, float s) {
     return make_float4(x.x * s, x.y * s, x.z * s, x.w * s);
 }
 
+__device__ __forceinline__ void cluster_arrive() {
+    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
 template <typename T>
 __global__ void __launch_bounds__(FA_THREADS, 2)
-flash_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, T* __restrict__ o, int Sq,
-                  int Skv, int Hq, int Hkv, int D, int g, int tq, int causal,
-                  int window, float cap, float scale, int vec) {
+flash_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ o, int Sq,
+                 int Skv, int Hq, int Hkv, int D, int g, int tq, int causal,
+                 int window, float cap, float scale, int vec) {
     cg::cluster_group cl = cg::this_cluster();
     const int nc = (int)cl.num_blocks(), rank = (int)cl.block_rank();
+    const int nch = (D + DS - 1) / DS;
     extern __shared__ float4 fw_sm4[];
     float* q_sh = reinterpret_cast<float*>(fw_sm4);    // [FA_R][ST]
     float* kv_sh = q_sh + FA_R * ST;                    // [BK][ST]
     float* ps_sh = kv_sh + BK * ST;                     // [2][FA_R][PS]
     float* m_sh = ps_sh + 2 * FA_R * PS;                // [FA_R]
     float* l_sh = m_sh + FA_R;                          // [FA_R]
-    float* a_sh = l_sh + FA_R;                          // [FA_R]
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int bh = blockIdx.x / nc;
     const int b = bh / Hkv, hk = bh % Hkv;
     const int q0 = (gridDim.y - 1 - blockIdx.y) * tq;  // latest tiles first
     const int nq = min(tq, Sq - q0);
     const int rows = tq * g;
-    const int d0 = rank * DS;                           // this block's columns
+    const int oc = blockIdx.z * nc + rank;              // output chunk
+    const bool owns = oc < nch;
+    const int o0 = oc * DS;
+    // one score chunk, which is then the output chunk: Q stays staged
+    const bool resident = nch <= nc;
+    const int rpb = (FA_R + nc - 1) / nc;               // softmax rows a block
     const bool vv = vec != 0;
 
-    // the scaled Q slice, zero past the valid rows and past D
-    for (int e = tid; e < FA_R * DS / 4; e += FA_THREADS) {
-        const int r = e >> 5, d = d0 + 4 * (e & 31);
-        float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (r < rows && r / g < nq && d < D) {
-            const int qi = q0 + r / g, h = hk * g + r % g;
-            x = scale4(load4(q + (((size_t)b * Sq + qi) * Hq + h) * D + d,
-                             D - d, vv), scale);
+    // the scaled Q slice of columns [c0, c0 + DS), zero past the valid
+    // rows and past D
+    auto stage_q = [&](int c0) {
+        for (int e = tid; e < FA_R * DS / 4; e += FA_THREADS) {
+            const int r = e >> 5, d = c0 + 4 * (e & 31);
+            float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+            if (r < rows && r / g < nq && d < D) {
+                const int qi = q0 + r / g, h = hk * g + r % g;
+                x = scale4(load4(q + (((size_t)b * Sq + qi) * Hq + h) * D + d,
+                                 D - d, vv), scale);
+            }
+            *reinterpret_cast<float4*>(q_sh + r * ST + 4 * (e & 31)) = x;
         }
-        *reinterpret_cast<float4*>(q_sh + r * ST + 4 * (e & 31)) = x;
-    }
-    for (int r = tid; r < FA_R; r += FA_THREADS) {
-        m_sh[r] = FA_NEG;
-        l_sh[r] = 0.f;
-    }
-    // this block's K or V slice of key tile k0 (8 float4 a thread)
-    auto load_kv = [&](const T* src, int k0, float4* x) {
+    };
+    // columns [c0, c0 + DS) of key tile k0 of K or V into kv_sh, through
+    // registers (8 float4 a thread)
+    auto stage_kv = [&](const T* src, int k0, int c0) {
+        float4 x[KV_VEC];
 #pragma unroll
-        for (int i = 0; i < BK * DS / 4 / FA_THREADS; ++i) {
+        for (int i = 0; i < KV_VEC; ++i) {
             const int e = tid + FA_THREADS * i;
-            const int j = e >> 5, d = d0 + 4 * (e & 31), kj = k0 + j;
+            const int j = e >> 5, d = c0 + 4 * (e & 31), kj = k0 + j;
             x[i] = make_float4(0.f, 0.f, 0.f, 0.f);
             if (kj < Skv && d < D)
                 x[i] = load4(src + (((size_t)b * Skv + kj) * Hkv + hk) * D + d,
                              D - d, vv);
         }
-    };
-    auto store_kv = [&](const float4* x) {
 #pragma unroll
-        for (int i = 0; i < BK * DS / 4 / FA_THREADS; ++i) {
+        for (int i = 0; i < KV_VEC; ++i) {
             const int e = tid + FA_THREADS * i;
             *reinterpret_cast<float4*>(kv_sh + (e >> 5) * ST
                                        + 4 * (e & 31)) = x[i];
         }
     };
 
-    // O slice: rows warp + 8 i, columns 4 lane + j of this block's DS
+    for (int r = tid; r < FA_R; r += FA_THREADS) {
+        m_sh[r] = FA_NEG;
+        l_sh[r] = 0.f;
+    }
+    // O slice: rows warp + 8 i, columns 4 lane + j of the output chunk
     float acc[8][4];
 #pragma unroll
     for (int i = 0; i < 8; ++i)
@@ -877,42 +698,44 @@ flash_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                                 // keys tc + 16 j
     const int sr = tid >> 2, sq = tid & 3;      // softmax: row sr, keys
                                                 // 16 sq .. 16 sq + 15
+    const bool soft = sr >= rank * rpb && sr < (rank + 1) * rpb;
+
+    if (resident) stage_q(o0);
     int buf = 0;
     for (int k0 = kbeg; k0 < kend; k0 += BK, buf ^= 1) {
-        __syncthreads();                // the last tile's V and P are read
-        {
-            float4 x[BK * DS / 4 / FA_THREADS];
-            load_kv(k, k0, x);
-            store_kv(x);
-        }
-        __syncthreads();
-        // this block's partial scores over its columns
+        // this block's partial scores over its score chunks
         float s[4][4];
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
             for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+        for (int c = rank; c < nch; c += nc) {
+            __syncthreads();            // V, P (or the last chunk) are read
+            if (!resident) stage_q(c * DS);
+            stage_kv(k, k0, c * DS);
+            __syncthreads();
 #pragma unroll 2
-        for (int dd = 0; dd < DS; dd += 4) {
-            float4 qa[4], ka[4];
+            for (int dd = 0; dd < DS; dd += 4) {
+                float4 ka[4];
 #pragma unroll
-            for (int i = 0; i < 4; ++i) {
-                qa[i] = *reinterpret_cast<const float4*>(
-                    q_sh + (tr + 16 * i) * ST + dd);
-                ka[i] = *reinterpret_cast<const float4*>(
-                    kv_sh + (tc + 16 * i) * ST + dd);
-            }
+                for (int j = 0; j < 4; ++j)
+                    ka[j] = *reinterpret_cast<const float4*>(
+                        kv_sh + (tc + 16 * j) * ST + dd);
 #pragma unroll
-            for (int i = 0; i < 4; ++i)
+                for (int i = 0; i < 4; ++i) {
+                    const float4 qa = *reinterpret_cast<const float4*>(
+                        q_sh + (tr + 16 * i) * ST + dd);
 #pragma unroll
-                for (int j = 0; j < 4; ++j) {
-                    float x = s[i][j];
-                    x = fmaf(qa[i].x, ka[j].x, x);
-                    x = fmaf(qa[i].y, ka[j].y, x);
-                    x = fmaf(qa[i].z, ka[j].z, x);
-                    x = fmaf(qa[i].w, ka[j].w, x);
-                    s[i][j] = x;
+                    for (int j = 0; j < 4; ++j) {
+                        float x = s[i][j];
+                        x = fmaf(qa.x, ka[j].x, x);
+                        x = fmaf(qa.y, ka[j].y, x);
+                        x = fmaf(qa.z, ka[j].z, x);
+                        x = fmaf(qa.w, ka[j].w, x);
+                        s[i][j] = x;
+                    }
                 }
+            }
         }
         float* part = ps_sh + buf * FA_R * PS;
 #pragma unroll
@@ -920,89 +743,107 @@ flash_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
             for (int j = 0; j < 4; ++j)
                 part[(tr + 16 * i) * PS + tc + 16 * j] = s[i][j];
-        // the cluster barrier in two halves: arrive once this block's
-        // partials are written, load this tile's V slice over K's while the
-        // other blocks arrive (K's readers are this block's own threads),
-        // then wait until every block's partials are written
-        asm volatile("barrier.cluster.arrive.release.aligned;\n" ::);
+        // barrier A in two halves: arrive once this block's partials are
+        // written, load this tile's V chunk over K while the other blocks
+        // arrive (K's readers are this block's own threads), then wait
+        // until every block's partials are written
+        cluster_arrive();
         __syncthreads();
-        {
-            float4 x[BK * DS / 4 / FA_THREADS];
-            load_kv(v, k0, x);
-            store_kv(x);
-        }
-        asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::);
-        // the scores of row sr, keys 16 sq + t: the partials summed in
-        // rank order
-        float sc[16];
-        {
-            const float* p0 = cl.map_shared_rank(part, 0) + sr * PS + 16 * sq;
+        if (owns) stage_kv(v, k0, o0);
+        cluster_wait();
+        if (soft) {
+            // row sr, keys 16 sq + t: the partials summed in rank order
+            float sc[16];
+            {
+                const float* p0 =
+                    cl.map_shared_rank(part, 0) + sr * PS + 16 * sq;
+#pragma unroll
+                for (int t = 0; t < 16; t += 4) {
+                    const float4 x = *reinterpret_cast<const float4*>(p0 + t);
+                    sc[t] = x.x;
+                    sc[t + 1] = x.y;
+                    sc[t + 2] = x.z;
+                    sc[t + 3] = x.w;
+                }
+            }
+#pragma unroll 4
+            for (int rk = 1; rk < nc; ++rk) {
+                const float* pr =
+                    cl.map_shared_rank(part, rk) + sr * PS + 16 * sq;
+#pragma unroll
+                for (int t = 0; t < 16; t += 4) {
+                    const float4 x = *reinterpret_cast<const float4*>(pr + t);
+                    sc[t] += x.x;
+                    sc[t + 1] += x.y;
+                    sc[t + 2] += x.z;
+                    sc[t + 3] += x.w;
+                }
+            }
+            // cap, then masks
+            const int qi = q0 + sr / g;
+            float mx = FA_NEG;
+#pragma unroll
+            for (int t = 0; t < 16; ++t) {
+                const int kj = k0 + 16 * sq + t;
+                float x = sc[t];
+                if (cap > 0.f) x = cap * tanhf(x / cap);
+                const int dp = qi - kj;
+                bool ok = kj < Skv;
+                if (causal) ok = ok && dp >= 0;
+                if (window > 0) ok = ok && dp < window;
+                sc[t] = ok ? x : FA_NEG;
+                mx = fmaxf(mx, sc[t]);
+            }
+            // the online softmax of row sr over its four lanes (a row's
+            // four lanes are one quad of a warp, all in or all out)
+            const unsigned quad = 0xfu << (lane & ~3);
+            const float m_prev = m_sh[sr];
+            mx = fmaxf(mx, __shfl_xor_sync(quad, mx, 1));
+            mx = fmaxf(mx, __shfl_xor_sync(quad, mx, 2));
+            const float m_new = fmaxf(m_prev, mx);
+            float sum = 0.f;
+            float* pp = part + sr * PS + 16 * sq;       // over the partials
 #pragma unroll
             for (int t = 0; t < 16; t += 4) {
-                const float4 x = *reinterpret_cast<const float4*>(p0 + t);
-                sc[t] = x.x;
-                sc[t + 1] = x.y;
-                sc[t + 2] = x.z;
-                sc[t + 3] = x.w;
+                float4 p;
+                p.x = expf(sc[t] - m_new);
+                p.y = expf(sc[t + 1] - m_new);
+                p.z = expf(sc[t + 2] - m_new);
+                p.w = expf(sc[t + 3] - m_new);
+                sum += p.x + p.y + p.z + p.w;
+                *reinterpret_cast<float4*>(pp + t) = p;
+            }
+            sum += __shfl_xor_sync(quad, sum, 1);
+            sum += __shfl_xor_sync(quad, sum, 2);
+            if (sq == 0) {
+                const float alpha = expf(m_prev - m_new);
+                l_sh[sr] = l_sh[sr] * alpha + sum;
+                m_sh[sr] = m_new;
+                part[sr * PS + BK] = alpha;
             }
         }
-        for (int rk = 1; rk < nc; ++rk) {
-            const float* pr = cl.map_shared_rank(part, rk) + sr * PS + 16 * sq;
-#pragma unroll
-            for (int t = 0; t < 16; t += 4) {
-                const float4 x = *reinterpret_cast<const float4*>(pr + t);
-                sc[t] += x.x;
-                sc[t + 1] += x.y;
-                sc[t + 2] += x.z;
-                sc[t + 3] += x.w;
+        // barrier B: every row's P and alpha are written by its owner
+        const float* pm = part;
+        if (nc > 1) {
+            cluster_arrive();
+            cluster_wait();
+            if (!owns) continue;
+            // the 64 rows (probabilities and alpha) from their owners
+            float* loc = ps_sh + (buf ^ 1) * FA_R * PS;
+            for (int e = tid; e < FA_R * (BK / 4 + 1); e += FA_THREADS) {
+                const int r = e / (BK / 4 + 1), c = 4 * (e % (BK / 4 + 1));
+                *reinterpret_cast<float4*>(loc + r * PS + c) =
+                    *reinterpret_cast<const float4*>(
+                        cl.map_shared_rank(part, r / rpb) + r * PS + c);
             }
+            pm = loc;
         }
-        // cap, then masks
-        const int qi = q0 + sr / g;
-        float mx = FA_NEG;
-#pragma unroll
-        for (int t = 0; t < 16; ++t) {
-            const int kj = k0 + 16 * sq + t;
-            float x = sc[t];
-            if (cap > 0.f) x = cap * tanhf(x / cap);
-            const int dp = qi - kj;
-            bool ok = kj < Skv;
-            if (causal) ok = ok && dp >= 0;
-            if (window > 0) ok = ok && dp < window;
-            sc[t] = ok ? x : FA_NEG;
-            mx = fmaxf(mx, sc[t]);
-        }
-        // the online softmax of row sr over its four lanes
-        const float m_prev = m_sh[sr];
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        const float m_new = fmaxf(m_prev, mx);
-        float sum = 0.f;
-        float* pp = ps_sh + (buf ^ 1) * FA_R * PS + sr * PS + 16 * sq;
-#pragma unroll
-        for (int t = 0; t < 16; t += 4) {
-            float4 p;
-            p.x = expf(sc[t] - m_new);
-            p.y = expf(sc[t + 1] - m_new);
-            p.z = expf(sc[t + 2] - m_new);
-            p.w = expf(sc[t + 3] - m_new);
-            sum += p.x + p.y + p.z + p.w;
-            *reinterpret_cast<float4*>(pp + t) = p;
-        }
-        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-        if (sq == 0) {
-            const float alpha = expf(m_prev - m_new);
-            l_sh[sr] = l_sh[sr] * alpha + sum;
-            m_sh[sr] = m_new;
-            a_sh[sr] = alpha;
-        }
-        __syncthreads();                // P, alpha and V are written
+        __syncthreads();                // P, alpha and V are in place
+        if (!owns) continue;
         // O = O * alpha + P V
-        const float* pm = ps_sh + (buf ^ 1) * FA_R * PS;
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
-            const float alpha = a_sh[warp + 8 * i];
+            const float alpha = pm[(warp + 8 * i) * PS + BK];
 #pragma unroll
             for (int j = 0; j < 4; ++j) acc[i][j] *= alpha;
         }
@@ -1028,18 +869,26 @@ flash_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
             }
         }
     }
-    cl.sync();                          // no block reads this one's buffers
+    // each row's l from its owner; no block leaves while its l is read
+    cl.sync();
+    float den[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+        const int r = warp + 8 * i;
+        den[i] = fmaxf(*cl.map_shared_rank(l_sh + r, r / rpb), 1e-30f);
+    }
+    cl.sync();
+    if (!owns) return;
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
         const int r = warp + 8 * i;
         if (r >= rows || r / g >= nq) continue;
         const int qi = q0 + r / g, h = hk * g + r % g;
-        const float den = fmaxf(l_sh[r], 1e-30f);
         T* orow = o + (((size_t)b * Sq + qi) * Hq + h) * D;
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-            const int d = d0 + 4 * lane + j;
-            if (d < D) fa_store(orow + d, acc[i][j] / den);
+            const int d = o0 + 4 * lane + j;
+            if (d < D) fa_store(orow + d, acc[i][j] / den[i]);
         }
     }
 }
@@ -1047,345 +896,74 @@ flash_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T>
 static int launch(const void* q, const void* k, const void* v, void* o,
                   int B, int Sq, int Skv, int Hq, int Hkv, int D, int causal,
-                  int window, float cap, float scale, cudaStream_t stream) {
+                  int window, float cap, float scale, int vec,
+                  cudaStream_t stream) {
     const int g = Hq / Hkv;
     const int tq = FA_R / g;
-    const int nc = (D + DS - 1) / DS;
-    if (nc < 1 || nc > MAX_CLUSTER) return (int)cudaErrorInvalidValue;
-    // one aligned vector load per 4 elements: D % 4 == 0 and aligned bases
-    const size_t al = 4 * sizeof(T);
-    const int vec = D % 4 == 0 && (size_t)q % al == 0 && (size_t)k % al == 0
-                    && (size_t)v % al == 0;
+    const Split sp = split_d(D);
+    auto kern = flash_f32_kernel<T>;
     cudaError_t err = cudaFuncSetAttribute(
-        flash_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        SMEM_BYTES);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+    if (err == cudaSuccess && sp.nc > 8)
+        err = cudaFuncSetAttribute(
+            kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return (int)err;
     cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3((unsigned)(nc * B * Hkv), (Sq + tq - 1) / tq, 1);
+    cfg.gridDim = dim3((unsigned)(sp.nc * B * Hkv), (Sq + tq - 1) / tq,
+                       (unsigned)sp.ng);
     cfg.blockDim = dim3(FA_THREADS, 1, 1);
     cfg.dynamicSmemBytes = SMEM_BYTES;
     cfg.stream = stream;
     cudaLaunchAttribute attr[1];
     attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = (unsigned)nc;
+    attr[0].val.clusterDim.x = (unsigned)sp.nc;
     attr[0].val.clusterDim.y = 1;
     attr[0].val.clusterDim.z = 1;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    err = cudaLaunchKernelEx(&cfg, flash_wide_kernel<T>, (const T*)q,
-                             (const T*)k, (const T*)v, (T*)o, Sq, Skv, Hq,
-                             Hkv, D, g, tq, causal, window, cap, scale, vec);
+    err = cudaLaunchKernelEx(&cfg, kern, (const T*)q, (const T*)k,
+                             (const T*)v, (T*)o, Sq, Skv, Hq, Hkv, D, g, tq,
+                             causal, window, cap, scale, vec);
     if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int occupancy() {
+    auto kern = flash_f32_kernel<T>;
+    int blocks = -1;
+    if (cudaFuncSetAttribute(kern,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             SMEM_BYTES) != cudaSuccess
+        || cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+               &blocks, kern, FA_THREADS, SMEM_BYTES) != cudaSuccess)
+        return -1;
+    return blocks;
 }
 
 }  // namespace fw
 
 // f32 (bf16 == 0) or bf16 q, k, v, o, contiguous; window <= 0: none;
-// cap <= 0: none.  The wrapper has checked 256 < D <= 1024,
-// Hq % Hkv == 0 and Hq / Hkv <= FA_R.
-extern "C" int flash_attention_wide_launch(const void* q, const void* k,
-                                           const void* v, void* o, int B,
-                                           int Sq, int Skv, int Hq, int Hkv,
-                                           int D, int causal, int window,
-                                           float cap, float scale, int bf16,
-                                           void* stream) {
+// cap <= 0: none.  The wrapper has checked D >= 1, Hq % Hkv == 0 and
+// Hq / Hkv <= FA_R.
+extern "C" int flash_attention_cuda_cores_launch(
+        const void* q, const void* k, const void* v, void* o, int B, int Sq,
+        int Skv, int Hq, int Hkv, int D, int causal, int window, float cap,
+        float scale, int bf16, void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
+    // one aligned vector load per 4 elements: D % 4 == 0 and aligned bases
+    const size_t al = bf16 ? 8 : 16;
+    const int vec = D % 4 == 0 && (size_t)q % al == 0 && (size_t)k % al == 0
+                    && (size_t)v % al == 0;
     if (bf16)
         return fw::launch<__nv_bfloat16>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D,
-                                         causal, window, cap, scale, s);
+                                         causal, window, cap, scale, vec, s);
     return fw::launch<float>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, causal,
-                             window, cap, scale, s);
+                             window, cap, scale, vec, s);
 }
 
-// ---------------------------------------------------------------------------
-// The two-pass wide form, D > 1024 (flash_wide_stats + flash_wide_out,
-// launch count flash_attention_wide_2pass), the rows folded as in the f32
-// form (FA_R = 64 rows, key tiles of FA_TK = 32):
-//
-//   flash_wide_stats: grid (B x Hkv, query tiles).  For each key tile it
-//     computes the 64 x 32 scores over D in chunks of FW_DC columns of the
-//     scaled q and of k staged in shared memory, applies the cap and the
-//     masks, and updates each row's running max m and sum l (the f32
-//     form's online softmax without the accumulator); it writes the final
-//     m and l of each row to the scratch ml (2, B, Sq, Hq).
-//   flash_wide_out: grid (B x Hkv, query tiles, D / FW_DO).  Each block
-//     owns FW_DO output columns: it recomputes each key tile's scores the
-//     same way, takes p = exp(s - m) with m already final (no rescaling),
-//     stages its FW_DO columns of the v tile and accumulates p v in
-//     registers, then writes acc / max(l, 1e-30).
-//
-// Its shared memory (~50 KB) is fixed whatever D.
-#define FW_DC 64           // D columns of q and k staged per chunk
-#define FW_DO 128          // output columns per block of the second pass
-#define FW_QS (FW_DC + 1)  // padded row stride of the staged chunks
-
-constexpr int fw_smem_floats(bool out_pass) {
-    return FA_R * FW_QS + FA_TK * FW_QS + FA_R * (FA_TK + 1) + 2 * FA_R
-           + (out_pass ? FA_TK * FW_DO : 0);
-}
-
-// The scores of rows tr*4 + i, key columns tc and tc + 16 of key tile k0,
-// over all of D (q scaled), capped and masked, into p_sh.  Leaves the
-// block synchronised.
-template <typename T>
-__device__ __forceinline__ void fw_scores(
-        const T* __restrict__ q, const T* __restrict__ k, float* q_sh,
-        float* k_sh, float* p_sh, int b, int hk, int q0, int nq, int rows,
-        int k0, int Sq, int Skv, int Hq, int Hkv, int D, int g, int causal,
-        int window, float cap, float scale) {
-    const int tid = threadIdx.x;
-    const int tr = tid >> 4, tc = tid & 15;
-    float s[4][2];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) s[i][0] = s[i][1] = 0.f;
-    for (int d0 = 0; d0 < D; d0 += FW_DC) {
-        __syncthreads();            // the last chunk (or tile) is read
-        for (int e = tid; e < FA_R * FW_DC; e += FA_THREADS) {
-            const int r = e / FW_DC, d = d0 + e % FW_DC;
-            float x = 0.f;
-            if (r < rows && r / g < nq && d < D) {
-                const int qi = q0 + r / g, h = hk * g + r % g;
-                x = fa_load(q + (((size_t)b * Sq + qi) * Hq + h) * D + d)
-                    * scale;
-            }
-            q_sh[r * FW_QS + e % FW_DC] = x;
-        }
-        for (int e = tid; e < FA_TK * FW_DC; e += FA_THREADS) {
-            const int j = e / FW_DC, d = d0 + e % FW_DC;
-            const int kj = k0 + j;
-            k_sh[j * FW_QS + e % FW_DC] =
-                (kj < Skv && d < D)
-                    ? fa_load(k + (((size_t)b * Skv + kj) * Hkv + hk) * D + d)
-                    : 0.f;
-        }
-        __syncthreads();
-#pragma unroll 1
-        for (int d = 0; d < FW_DC; ++d) {
-            const float k0v = k_sh[tc * FW_QS + d];
-            const float k1v = k_sh[(tc + 16) * FW_QS + d];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-                const float qv = q_sh[(tr * 4 + i) * FW_QS + d];
-                s[i][0] += qv * k0v;
-                s[i][1] += qv * k1v;
-            }
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const int r = tr * 4 + i;
-        const int qi = q0 + r / g;
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj) {
-            const int c = tc + 16 * jj;
-            const int kj = k0 + c;
-            float x = s[i][jj];
-            if (cap > 0.f) x = cap * tanhf(x / cap);
-            const int dp = qi - kj;
-            bool ok = kj < Skv;
-            if (causal) ok = ok && dp >= 0;
-            if (window > 0) ok = ok && dp < window;
-            p_sh[r * (FA_TK + 1) + c] = ok ? x : FA_NEG;
-        }
-    }
-    __syncthreads();
-}
-
-// key tiles that hold an unmasked (valid query, key) pair, as the f32 form
-__device__ __forceinline__ void fw_key_range(int q0, int nq, int Skv,
-                                             int causal, int window,
-                                             int* kbeg, int* kend) {
-    int b0 = 0, e0 = Skv;
-    if (causal) e0 = min(Skv, q0 + nq);
-    if (window > 0) b0 = max(0, q0 - window + 1);
-    *kbeg = (b0 / FA_TK) * FA_TK;
-    *kend = e0;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(FA_THREADS)
-flash_wide_stats(const T* __restrict__ q, const T* __restrict__ k,
-                 float* __restrict__ ml, int B, int Sq, int Skv, int Hq,
-                 int Hkv, int D, int g, int tq, int causal, int window,
-                 float cap, float scale) {
-    extern __shared__ float smem[];
-    float* q_sh = smem;                         // [FA_R][FW_QS]
-    float* k_sh = q_sh + FA_R * FW_QS;          // [FA_TK][FW_QS]
-    float* p_sh = k_sh + FA_TK * FW_QS;         // [FA_R][FA_TK + 1]
-    float* m_sh = p_sh + FA_R * (FA_TK + 1);    // [FA_R]
-    float* l_sh = m_sh + FA_R;                  // [FA_R]
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int b = blockIdx.x / Hkv, hk = blockIdx.x % Hkv;
-    const int q0 = blockIdx.y * tq;
-    const int nq = min(tq, Sq - q0);
-    const int rows = tq * g;
-    for (int r = tid; r < FA_R; r += FA_THREADS) {
-        m_sh[r] = FA_NEG;
-        l_sh[r] = 0.f;
-    }
-    int kbeg, kend;
-    fw_key_range(q0, nq, Skv, causal, window, &kbeg, &kend);
-    for (int k0 = kbeg; k0 < kend; k0 += FA_TK) {
-        fw_scores(q, k, q_sh, k_sh, p_sh, b, hk, q0, nq, rows, k0, Sq, Skv,
-                  Hq, Hkv, D, g, causal, window, cap, scale);
-        // warp w takes rows 8w .. 8w+7, lane = key column
-        for (int i = 0; i < 8; ++i) {
-            const int r = warp * 8 + i;
-            const float x = p_sh[r * (FA_TK + 1) + lane];
-            float mx = x;
-            for (int off = 16; off > 0; off >>= 1)
-                mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-            const float m_prev = m_sh[r];
-            const float m_new = fmaxf(m_prev, mx);
-            float sum = expf(x - m_new);
-            for (int off = 16; off > 0; off >>= 1)
-                sum += __shfl_xor_sync(0xffffffffu, sum, off);
-            if (lane == 0) {
-                l_sh[r] = l_sh[r] * expf(m_prev - m_new) + sum;
-                m_sh[r] = m_new;
-            }
-        }
-    }
-    __syncthreads();
-    const size_t plane = (size_t)B * Sq * Hq;
-    for (int r = tid; r < rows; r += FA_THREADS) {
-        if (r / g >= nq) continue;
-        const size_t idx =
-            ((size_t)b * Sq + q0 + r / g) * Hq + hk * g + r % g;
-        ml[idx] = m_sh[r];
-        ml[plane + idx] = l_sh[r];
-    }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(FA_THREADS)
-flash_wide_out(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, const float* __restrict__ ml,
-               T* __restrict__ o, int B, int Sq, int Skv, int Hq, int Hkv,
-               int D, int g, int tq, int causal, int window, float cap,
-               float scale) {
-    extern __shared__ float smem[];
-    float* q_sh = smem;                         // [FA_R][FW_QS]
-    float* k_sh = q_sh + FA_R * FW_QS;          // [FA_TK][FW_QS]
-    float* p_sh = k_sh + FA_TK * FW_QS;         // [FA_R][FA_TK + 1]
-    float* m_sh = p_sh + FA_R * (FA_TK + 1);    // [FA_R] final max
-    float* l_sh = m_sh + FA_R;                  // [FA_R] final sum
-    float* v_sh = l_sh + FA_R;                  // [FA_TK][FW_DO]
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int b = blockIdx.x / Hkv, hk = blockIdx.x % Hkv;
-    const int q0 = blockIdx.y * tq;
-    const int nq = min(tq, Sq - q0);
-    const int rows = tq * g;
-    const int c0 = blockIdx.z * FW_DO;          // this block's columns
-    const size_t plane = (size_t)B * Sq * Hq;
-    for (int r = tid; r < FA_R; r += FA_THREADS) {
-        float m = FA_NEG, l = 1.f;
-        if (r < rows && r / g < nq) {
-            const size_t idx =
-                ((size_t)b * Sq + q0 + r / g) * Hq + hk * g + r % g;
-            m = ml[idx];
-            l = ml[plane + idx];
-        }
-        m_sh[r] = m;
-        l_sh[r] = l;
-    }
-    float acc[8][FW_DO / 32];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < FW_DO / 32; ++j) acc[i][j] = 0.f;
-    int kbeg, kend;
-    fw_key_range(q0, nq, Skv, causal, window, &kbeg, &kend);
-    for (int k0 = kbeg; k0 < kend; k0 += FA_TK) {
-        fw_scores(q, k, q_sh, k_sh, p_sh, b, hk, q0, nq, rows, k0, Sq, Skv,
-                  Hq, Hkv, D, g, causal, window, cap, scale);
-        // p = exp(s - m) with the final m, and this block's v columns
-        for (int e = tid; e < FA_R * FA_TK; e += FA_THREADS) {
-            const int r = e / FA_TK, c = e % FA_TK;
-            p_sh[r * (FA_TK + 1) + c] =
-                expf(p_sh[r * (FA_TK + 1) + c] - m_sh[r]);
-        }
-        for (int e = tid; e < FA_TK * FW_DO; e += FA_THREADS) {
-            const int j = e / FW_DO, d = c0 + e % FW_DO;
-            const int kj = k0 + j;
-            v_sh[e] = (kj < Skv && d < D)
-                ? fa_load(v + (((size_t)b * Skv + kj) * Hkv + hk) * D + d)
-                : 0.f;
-        }
-        __syncthreads();
-        // acc += p v: rows warp + 8 i, columns lane + 32 j
-        for (int c = 0; c < FA_TK; ++c) {
-            float vv[FW_DO / 32];
-#pragma unroll
-            for (int j = 0; j < FW_DO / 32; ++j)
-                vv[j] = v_sh[c * FW_DO + lane + 32 * j];
-#pragma unroll
-            for (int i = 0; i < 8; ++i) {
-                const float p = p_sh[(warp + 8 * i) * (FA_TK + 1) + c];
-#pragma unroll
-                for (int j = 0; j < FW_DO / 32; ++j) acc[i][j] += p * vv[j];
-            }
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-        const int r = warp + 8 * i;
-        if (r >= rows || r / g >= nq) continue;
-        const int qi = q0 + r / g, h = hk * g + r % g;
-        const float den = fmaxf(l_sh[r], 1e-30f);
-        T* orow = o + (((size_t)b * Sq + qi) * Hq + h) * D;
-#pragma unroll
-        for (int j = 0; j < FW_DO / 32; ++j) {
-            const int d = c0 + lane + 32 * j;
-            if (d < D) fa_store(orow + d, acc[i][j] / den);
-        }
-    }
-}
-
-template <typename T>
-static int flash_wide_launch_t(const void* q, const void* k, const void* v,
-                               void* o, float* ml, int B, int Sq, int Skv,
-                               int Hq, int Hkv, int D, int causal,
-                               int window, float cap, float scale,
-                               cudaStream_t stream) {
-    const int g = Hq / Hkv;
-    const int tq = FA_R / g;
-    const int smem1 = fw_smem_floats(false) * (int)sizeof(float);
-    const int smem2 = fw_smem_floats(true) * (int)sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_wide_stats<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem1);
-    if (err == cudaSuccess)
-        err = cudaFuncSetAttribute(
-            flash_wide_out<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            smem2);
-    if (err != cudaSuccess) return (int)err;
-    dim3 grid1(B * Hkv, (Sq + tq - 1) / tq);
-    flash_wide_stats<T><<<grid1, FA_THREADS, smem1, stream>>>(
-        (const T*)q, (const T*)k, ml, B, Sq, Skv, Hq, Hkv, D, g, tq, causal,
-        window, cap, scale);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    dim3 grid2(B * Hkv, (Sq + tq - 1) / tq, (D + FW_DO - 1) / FW_DO);
-    flash_wide_out<T><<<grid2, FA_THREADS, smem2, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, ml, (T*)o, B, Sq, Skv, Hq, Hkv,
-        D, g, tq, causal, window, cap, scale);
-    return (int)cudaGetLastError();
-}
-
-// f32 (bf16 == 0) or bf16 q, k, v, o, contiguous; ml: f32 scratch of
-// 2 B Sq Hq floats; window <= 0: none; cap <= 0: none.  The wrapper has
-// checked D > 1024, Hq % Hkv == 0 and Hq / Hkv <= FA_R.
-extern "C" int flash_attention_wide_2pass_launch(
-        const void* q, const void* k, const void* v, void* o, void* ml, int B,
-        int Sq, int Skv, int Hq, int Hkv, int D, int causal, int window,
-        float cap, float scale, int bf16, void* stream) {
-    cudaStream_t s = (cudaStream_t)stream;
-    if (bf16)
-        return flash_wide_launch_t<__nv_bfloat16>(
-            q, k, v, o, (float*)ml, B, Sq, Skv, Hq, Hkv, D, causal, window,
-            cap, scale, s);
-    return flash_wide_launch_t<float>(q, k, v, o, (float*)ml, B, Sq, Skv, Hq,
-                                      Hkv, D, causal, window, cap, scale, s);
+// Blocks an SM of the f32-arithmetic form (bf16 or f32 inputs), for
+// chip_smoke.py's ptxas line; -1 when the query fails.
+extern "C" int flash_attention_cuda_cores_occupancy(int bf16) {
+    return bf16 ? fw::occupancy<__nv_bfloat16>() : fw::occupancy<float>();
 }

@@ -56,15 +56,11 @@ _SIGNATURES = {
     "sketch_bound_smem_bytes": ([_I], ctypes.c_longlong),
     "sketch_bound_occupancy": ([_I], _I),
     "lb_keogh_launch": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
-    "flash_attention_f32_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                    _I, _I, _F, _F, _P], _I),
     "flash_attention_bf16_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                      _I, _I, _F, _F, _P], _I),
-    "flash_attention_wide_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                     _I, _I, _F, _F, _I, _P], _I),
-    "flash_attention_wide_2pass_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                           _I, _I, _I, _I, _F, _F, _I, _P],
-                                          _I),
+    "flash_attention_cuda_cores_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                           _I, _I, _I, _F, _F, _I, _P], _I),
+    "flash_attention_cuda_cores_occupancy": ([_I], _I),
     "mamba_scan_launch": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _P], _I),
     "mamba_scan_wide_launch": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -166,8 +162,7 @@ COUNTS: dict[str, int] = dict.fromkeys(
      "dtw_band_block", "dtw_band_stream", "dtw_band_stream_cluster",
      "dtw_band_stream_scratch", "dtw_band_step", "dtw_band_step_block",
      "sketch_bound", "lb_keogh", "flash_attention",
-     "flash_attention_f32", "flash_attention_wide",
-     "flash_attention_wide_2pass", "mamba_scan", "mamba_scan_wide"), 0)
+     "flash_attention_f32", "mamba_scan", "mamba_scan_wide"), 0)
 
 
 def reset_counts() -> None:

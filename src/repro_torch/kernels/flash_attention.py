@@ -1,6 +1,7 @@
 """K9 wrapper: fused attention forward on the card
-(csrc/flash_attention.cu), in three forms: two for head dims up to 256,
-chosen by the input type, and a wide form for any head dim past 256.
+(csrc/flash_attention.cu), in two forms, which ``k9_form(dtype, D)``
+picks: the bf16 tensor-core form for bfloat16 inputs with head dims up to
+``MAX_HEAD_DIM`` = 256, and the f32-arithmetic form for everything else.
 
 Replaces ``src/repro/kernels/flash_attention.py:flash_attention_pallas``
 (``_flash_fwd_kernel``).  Bound on this card: operations, 4 D per
@@ -10,36 +11,32 @@ gemma2-2b's B = 2, S = 8192, Hq = 8, Hkv = 4, D = 256 a global layer is
 query heads of a kv head into a block's rows and skip key tiles outside
 the causal wedge or the window.
 
-- bfloat16 (launch count ``flash_attention``): tensor cores.  Blocks of
+- ``"bf16"`` (launch count ``flash_attention``): tensor cores.  Blocks of
   128 folded rows in two consumer warpgroups, S = Q K^T and O += P V on
   ``wgmma`` with f32 accumulators, K/V tiles of 64 keys by TMA into a
   two-stage ring, the online softmax in registers, P rounded to bf16 for
   the PV product.
-- float32 (``flash_attention_f32``): CUDA cores in f32, blocks of 64
-  rows, key tiles of 32 in shared memory; the f32 tolerance (1e-4) is
-  below what bf16 or TF32 products reach.
-- D > 256, float32 or bfloat16, in f32 on CUDA cores: both forms above
-  keep a block's rows in shared memory sized by D.  Up to
-  ``MAX_WIDE_ONE_PASS`` = 1024 (``flash_attention_wide``, one launch): one
-  pass over a thread-block cluster of ``ceil(D / 128)`` blocks, each
-  holding 128 columns of the query tile, its partial scores summed
-  through distributed shared memory in rank order, so every score is
-  computed once and every block of the cluster runs the same softmax on
-  its slice of O.  Past it (``flash_attention_wide_2pass``, one count per
-  call of its two kernels): two passes with shared memory fixed in D, the
-  first taking each row's softmax max and sum, the second recomputing the
-  scores for its own 128 output columns.  bf16 inputs are read as bf16
-  and the output rounded to bf16 once.  No configuration reaches either
-  (gemma2-2b's d_head 256 is the largest).
+- ``"f32"`` (launch count ``flash_attention_f32``, named for its
+  arithmetic): every float32 call at any head dim, and bfloat16 past
+  ``MAX_HEAD_DIM``, in f32 on CUDA cores (the f32 tolerance, 1e-4, is
+  below what bf16 or TF32 products reach).  One launch: a thread-block
+  cluster of up to 16 blocks splits D into 128-column chunks, each block
+  holding one chunk of O, its partial scores summed through distributed
+  shared memory in rank order, so every block that shares a row runs the
+  same softmax; past D = 2048 the grid's z dimension splits O into groups
+  of at most 2048 columns, each group computing the scores over all of D
+  the same way.  bf16 inputs are read as bf16 and the output rounded to
+  bf16 once.  These two counts are K9's only ones: the earlier
+  ``flash_attention_wide`` and ``flash_attention_wide_2pass`` counts went
+  with the forms this one replaced.
 
 The wrapper takes what the kernels do not, exactly: a group of more than
 ``MAX_GROUP`` query heads per kv head runs in launches of at most that
-many heads of each group; in bfloat16, a head dim that is not a multiple
-of 8 (the TMA's row stride) runs on copies zero-padded to the next
-multiple of 8, with the true ``D ** -0.5`` scale, and the output is cut
-back; storage that is not 16-byte aligned runs on an aligned copy (neither
-applies to the wide form, which reads unaligned storage element by
-element).
+many heads of each group; in the bf16 form, a head dim that is not a
+multiple of 8 (the TMA's row stride) runs on copies zero-padded to the
+next multiple of 8, with the true ``D ** -0.5`` scale, and the output is
+cut back, and storage that is not 16-byte aligned runs on an aligned copy
+(the f32-arithmetic form reads unaligned storage element by element).
 
 Forward only: inputs that require a gradient are refused (training,
 ROADMAP Queue 1 item 13(b), is to recompute through the plain version,
@@ -59,12 +56,16 @@ Tensor = torch.Tensor
 # query rows (query, head) of one block: a launch folds at most this many
 # query heads of a kv head (g = Hq / Hkv)
 MAX_GROUP = 64
-# the largest head dim of the f32 and bf16 forms; past it the wide form
+# the largest head dim of the bf16 tensor-core form
 MAX_HEAD_DIM = 256
-# the largest head dim of the wide form's one pass (8 blocks of 128
-# columns, the portable cluster size); past it the two-pass form
-MAX_WIDE_ONE_PASS = 1024
 _DTYPES = (torch.float32, torch.bfloat16)
+
+
+def k9_form(dtype: torch.dtype, D: int) -> str:
+    """K9's form for inputs of ``dtype`` and head dim ``D``: ``"bf16"``
+    (tensor cores) for bfloat16 up to ``MAX_HEAD_DIM``, else ``"f32"``
+    (f32 arithmetic on CUDA cores)."""
+    return "bf16" if dtype == torch.bfloat16 and D <= MAX_HEAD_DIM else "f32"
 
 
 def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
@@ -112,8 +113,8 @@ def _attend(q: Tensor, k: Tensor, v: Tensor, out: Tensor, causal: bool,
             window: int | None, score_cap: float | None,
             scale: float) -> None:
     """Write the attention of checked inputs into ``out``, splitting the
-    query-head groups, running the wide form past ``MAX_HEAD_DIM`` and
-    padding or copying bf16 operands as the other forms need."""
+    query-head groups, in the form ``k9_form`` picks, padding or copying
+    the bf16 form's operands as it needs."""
     B, Sq, Hq, D = q.shape
     Hkv = k.shape[2]
     g = Hq // Hkv
@@ -131,31 +132,17 @@ def _attend(q: Tensor, k: Tensor, v: Tensor, out: Tensor, causal: bool,
             _attend(qs, k, v, os_, causal, window, score_cap, scale)
             o5[:, :, :, j0:j1] = os_.view(B, Sq, Hkv, j1 - j0, D)
         return
-    bf16 = q.dtype == torch.bfloat16
-    if D > MAX_HEAD_DIM:
-        lib = _build.library()
-        args = (B, Sq, k.shape[1], Hq, Hkv, D, int(bool(causal)),
-                0 if window is None else int(window),
-                0.0 if score_cap is None else float(score_cap), float(scale),
-                int(bf16), stream_ptr(q.device))
-        if D <= MAX_WIDE_ONE_PASS:
-            name = "flash_attention_wide"
-            rc = lib.flash_attention_wide_launch(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                *args)
-        else:
-            # each row's softmax max and sum, from the first pass to the
-            # second
-            ml = torch.empty((2, B, Sq, Hq), dtype=torch.float32,
-                             device=q.device)
-            name = "flash_attention_wide_2pass"
-            rc = lib.flash_attention_wide_2pass_launch(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                ml.data_ptr(), *args)
-        _build.check(rc, name)
-        _build.COUNTS[name] += 1
+    if k9_form(q.dtype, D) == "f32":
+        _build.check(_build.library().flash_attention_cuda_cores_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
+            k.shape[1], Hq, Hkv, D, int(bool(causal)),
+            0 if window is None else int(window),
+            0.0 if score_cap is None else float(score_cap), float(scale),
+            int(q.dtype == torch.bfloat16), stream_ptr(q.device)),
+            "flash_attention_f32")
+        _build.COUNTS["flash_attention_f32"] += 1
         return
-    if bf16 and D % 8:
+    if D % 8:
         # zero columns add nothing to q k^T; v's zero columns are cut off
         pad = (0, -D % 8)
         qp, kp, vp = (F.pad(x, pad) for x in (q, k, v))
@@ -163,17 +150,12 @@ def _attend(q: Tensor, k: Tensor, v: Tensor, out: Tensor, causal: bool,
         _attend(qp, kp, vp, op, causal, window, score_cap, scale)
         out.copy_(op[..., :D])
         return
-    if bf16:
-        # the TMA reads 16-byte aligned storage (out is always fresh)
-        q, k, v = (x.clone() if x.data_ptr() % 16 else x for x in (q, k, v))
-    lib = _build.library()
-    launch, name = ((lib.flash_attention_bf16_launch, "flash_attention")
-                    if bf16 else
-                    (lib.flash_attention_f32_launch, "flash_attention_f32"))
-    _build.check(launch(
+    # the TMA reads 16-byte aligned storage (out is always fresh)
+    q, k, v = (x.clone() if x.data_ptr() % 16 else x for x in (q, k, v))
+    _build.check(_build.library().flash_attention_bf16_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
         k.shape[1], Hq, Hkv, D, int(bool(causal)),
         0 if window is None else int(window),
         0.0 if score_cap is None else float(score_cap), float(scale),
-        stream_ptr(q.device)), name)
-    _build.COUNTS[name] += 1
+        stream_ptr(q.device)), "flash_attention")
+    _build.COUNTS["flash_attention"] += 1

@@ -12,9 +12,9 @@ LB_ENHANCED forms and LB_Keogh agree to rtol 1e-5, atol 1e-6 (their
 L-term sums run in another order).  Flash attention (K9) agrees with its
 plain version to rtol 1e-4, atol 1e-5 in float32 (its CUDA-core form)
 and to rtol 1e-2, atol 1e-2 in bfloat16 (its tensor-core form: P is
-rounded to bf16 for the PV product, and the outputs are bf16); its wide
-form past D = 256 to the same tolerances by input type, bf16 also to a
-relative RMS error of 1e-2; the
+rounded to bf16 for the PV product, and the outputs are bf16); its
+f32-arithmetic form past D = 256 to the same tolerances by input type,
+bf16 also to a relative RMS error of 1e-2; the
 selective scan (K10) bit for bit (its N-sum keeps the plain version's
 order; where the tests below say rtol 1e-5, atol 1e-6, they hold the
 sweep of earlier slices to that bound too), its wide-state form past
@@ -40,7 +40,7 @@ from repro_torch.kernels.dtw_band import (
 )
 from repro_torch.kernels.envelope import envelope_cuda
 from repro_torch.kernels.flash_attention import (
-    MAX_WIDE_ONE_PASS,
+    MAX_HEAD_DIM,
     flash_attention_cuda,
 )
 from repro_torch.kernels.lb_enhanced import lb_enhanced_cuda
@@ -368,8 +368,6 @@ def test_wrappers_count_launches_and_refuse_bad_input(dev):
                                "dtw_band_step_block": 0, "sketch_bound": 0,
                                "lb_keogh": 0, "flash_attention": 0,
                                "flash_attention_f32": 0,
-                               "flash_attention_wide": 0,
-                               "flash_attention_wide_2pass": 0,
                                "mamba_scan": 0, "mamba_scan_wide": 0}
     with pytest.raises(ValueError, match="float32"):
         dtw_band_cuda(x.double(), x.double(), 3)
@@ -616,12 +614,12 @@ def test_lm_kernel_wrappers_count_and_refuse(dev):
         flash_attention_cuda(q.requires_grad_(), kv, kv)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         flash_attention_cuda(q.detach().half(), kv.half(), kv.half())
-    # a head dim past 256 runs the wide form under its own count
+    # a head dim past 256 runs the same f32-arithmetic form, one count
     big = _rand(dev, 38, 1, 4, 2, 320)
     torch.testing.assert_close(flash_attention_cuda(big, big, big),
                                ref.flash_attention_ref(big, big, big),
                                rtol=1e-4, atol=1e-5)
-    assert _build.counts()["flash_attention_wide"] == 1
+    assert _build.counts()["flash_attention_f32"] == 2
     with pytest.raises(ValueError, match="gradient"):
         mamba_scan_cuda(args[0].requires_grad_(), *args[1:])
     # a state past 256 runs the wide-state form under its own count
@@ -635,7 +633,7 @@ def test_lm_kernel_wrappers_count_and_refuse(dev):
     with pytest.raises(ValueError, match="N >= 1"):
         mamba_scan_cuda(wide[0], wide[1], wide[2][:, :0], wide[3][..., :0],
                         wide[4][..., :0], wide[5][..., :0])
-    assert _build.counts()["flash_attention_f32"] == 1
+    assert _build.counts()["flash_attention_f32"] == 2
     assert _build.counts()["flash_attention"] == 0
     assert _build.counts()["mamba_scan"] == 1
     assert _build.counts()["mamba_scan_wide"] == 1
@@ -694,13 +692,16 @@ def test_flash_attention_wrapper_repairs(dev, case):
     torch.testing.assert_close(got.float(), want.float(), **tol)
     name = "flash_attention_f32" if dt == torch.float32 else "flash_attention"
     assert _build.counts()[name] == (2 if g > 64 else 1)
-    # past D = 256 the wide form runs (no padding, any alignment)
+    # past D = 256 the f32-arithmetic form runs (no padding, any
+    # alignment)
+    _build.reset_counts()
     big = _rand(dev, 38, 1, 4, 2, 264).to(dt)
     got = flash_attention_cuda(big, big, big, True, 16, 30.0)
     torch.testing.assert_close(
         got.float(), ref.flash_attention_ref(big, big, big, True, 16,
                                              30.0).float(), **tol)
-    assert _build.counts()["flash_attention_wide"] == 1
+    assert _build.counts()["flash_attention_f32"] == 1
+    assert _build.counts()["flash_attention"] == 0
 
 
 # ---- slice 7: K2 over the whole store, K7's full tiles, K9's wide form ---
@@ -793,9 +794,16 @@ def test_sketch_bound_full_and_ragged_tiles_bit_equal(dev, S):
     _check(sketch_bound_cuda(qs, off[0], off[1], wseg), want, exact=True)
 
 
-# B, Sq, Skv, Hq, Hkv, D, causal, window, cap: D past 256, g in {1, 2, 8},
-# causal and not, window, cap, ragged and unequal Sq / Skv
+# B, Sq, Skv, Hq, Hkv, D, causal, window, cap: g in {1, 2, 8}, causal and
+# not, window, cap, ragged and unequal Sq / Skv; f32 at D in {64, 96, 200,
+# 256} (clusters of 1 and 2 blocks), both types past 256: one cluster up to
+# D = 2048 (16 blocks), column groups past it (D = 2100: 2 groups of 9
+# blocks, one owning no columns; D = 4100: 3 groups of 11)
 WIDE_SWEEP = [
+    (2, 40, 40, 2, 2, 64, True, None, None),
+    (1, 77, 77, 8, 4, 96, True, 16, 30.0),
+    (1, 100, 70, 8, 1, 200, False, None, 50.0),
+    (2, 65, 65, 16, 2, 256, True, None, 50.0),
     (2, 40, 40, 2, 2, 257, True, None, None),
     (1, 77, 77, 8, 4, 320, True, 16, 30.0),
     (1, 100, 70, 8, 1, 512, False, None, 50.0),
@@ -803,28 +811,30 @@ WIDE_SWEEP = [
     (2, 65, 65, 16, 2, 320, True, None, 50.0),
     (1, 1, 17, 8, 4, 512, False, None, None),
     (1, 30, 45, 2, 1, 1100, True, 20, 50.0),
+    (1, 30, 45, 2, 1, 2048, True, 20, 50.0),
+    (1, 17, 33, 2, 2, 2100, False, None, 30.0),
+    (1, 20, 20, 4, 2, 4100, True, None, None),
 ]
+WIDE_CASES = [(*case, dt) for case in WIDE_SWEEP
+              for dt in (torch.float32, torch.bfloat16)
+              if dt == torch.float32 or case[5] > MAX_HEAD_DIM]
 
 
-@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,D,causal,window,cap", WIDE_SWEEP)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,D,causal,window,cap,dtype",
+                         WIDE_CASES)
 def test_flash_attention_wide_form(dev, B, Sq, Skv, Hq, Hkv, D, causal,
                                    window, cap, dtype):
-    """K9 past D = 256 in its wide form against the plain version: f32 to
-    rtol 1e-4, atol 1e-5; bf16 to rtol 1e-2, atol 1e-2 and a relative RMS
-    error of 1e-2.  One launch of the one-pass form
-    (``flash_attention_wide``) up to D = 1024, of the two-pass form
-    (``flash_attention_wide_2pass``) past it, and no other."""
+    """K9's f32-arithmetic form (every f32 call, and bf16 past D = 256)
+    against the plain version: f32 to rtol 1e-4, atol 1e-5; bf16 to rtol
+    1e-2, atol 1e-2 and a relative RMS error of 1e-2.  One launch of
+    ``flash_attention_f32`` and none of ``flash_attention``."""
     q = _rand(dev, 90, B, Sq, Hq, D).to(dtype)
     k = _rand(dev, 91, B, Skv, Hkv, D).to(dtype)
     v = _rand(dev, 92, B, Skv, Hkv, D).to(dtype)
     _build.reset_counts()
     got = flash_attention_cuda(q, k, v, causal, window, cap)
-    counts = _build.counts()
-    one = D <= MAX_WIDE_ONE_PASS
-    assert counts["flash_attention_wide"] == int(one)
-    assert counts["flash_attention_wide_2pass"] == int(not one)
-    assert counts["flash_attention"] == counts["flash_attention_f32"] == 0
+    counts = {n: c for n, c in _build.counts().items() if c}
+    assert counts == {"flash_attention_f32": 1}
     want = ref.flash_attention_ref(q, k, v, causal, window, cap)
     assert got.dtype == dtype and got.shape == want.shape
     if dtype == torch.float32:

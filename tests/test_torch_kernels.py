@@ -204,9 +204,7 @@ def test_launch_counters_reset_and_read():
                            "dtw_band_stream_scratch", "dtw_band_step",
                            "dtw_band_step_block", "sketch_bound", "lb_keogh",
                            "flash_attention", "flash_attention_f32",
-                           "flash_attention_wide",
-                           "flash_attention_wide_2pass", "mamba_scan",
-                           "mamba_scan_wide"}
+                           "mamba_scan", "mamba_scan_wide"}
     _build.COUNTS["dtw_band"] += 3
     assert _build.counts()["dtw_band"] == 3
     _build.reset_counts()

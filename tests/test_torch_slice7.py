@@ -16,12 +16,11 @@ versions.
   float32 from its staged columns: least |q - c| per band, squared once,
   summed in the fixed order; bit-equal to ``ref.lb_enhanced_ref``.
 - ``ref.flash_attention_ref`` equals the Pallas kernel in interpret mode
-  at head dims 320 and 512 (the JAX test's rtol 2e-3, atol 2e-3), and
-  K9's two-pass wide form (csrc/flash_attention.cu, ``flash_wide_stats``
-  and ``flash_wide_out``, the form past D = 1024 since the one-pass form
-  of ``tests/test_torch_slice8.py``) emulated tile by tile in float64 (a
-  max and sum pass, then p = exp(s - m) per key tile) equals it to rtol
-  1e-5, atol 1e-6.
+  at head dims 320 and 512 (the JAX test's rtol 2e-3, atol 2e-3), and a
+  two-pass evaluation tile by tile in float64 (a max and sum pass, then
+  p = exp(s - m) per key tile; the arithmetic of an earlier K9 form for
+  wide heads, independent of the plain version's online softmax) equals
+  it to rtol 1e-5, atol 1e-6.
 """
 
 import jax.numpy as jnp
@@ -160,7 +159,7 @@ def test_k2_bands_form_bit_equal_to_plain(L, w, v):
 
 
 def _k9_wide(q, k, v, causal, window, cap, tile_q_rows=64, tile_k=32):
-    """K9's wide form, tile by tile in float64: rows folded per kv head
+    """A two-pass attention, tile by tile in float64: rows folded per kv head
     (row r = query q0 + r / g, head hk g + r % g), key tiles outside the
     causal wedge or the window skipped; pass 1 takes each row's running
     max and sum over the key tiles, pass 2 recomputes the scores and

@@ -12,12 +12,13 @@ versions.
   ``lb_keogh_pallas`` in interpret mode to rtol 1e-5, atol 1e-6 (its sum
   over L runs in another order), NaN where they have NaN; without the
   vote, ``lo > u`` and NaN envelopes give other values.
-- K9's one-pass wide form (csrc/flash_attention.cu, ``flash_wide_kernel``)
+- K9's split-D f32-arithmetic form (csrc/flash_attention.cu,
+  ``fw::flash_f32_kernel``, one cluster of ceil(D / 128) blocks)
   emulated in float32: partial scores per 128-column slice of D, summed
   in rank order, the cap, the masks and the online softmax over key tiles
-  of 64, against ``flash_attention_pallas`` in interpret mode at D = 320
-  and 512 to rtol 1e-4, atol 1e-5, and the port's ``flash_attention_op``
-  on the CPU beside them.
+  of 64, against ``flash_attention_pallas`` in interpret mode at D = 64
+  (one block), 200 and 256 (two) and 320 and 512 to rtol 1e-4, atol 1e-5,
+  and the port's ``flash_attention_op`` on the CPU beside them.
 - K10: the port's ``mamba_scan_op`` on the CPU at N = 320 against
   ``mamba_scan_pallas`` in interpret mode (``tests/test_torch_lm_kernels
   .py``'s rtol 1e-3, atol 1e-4: XLA contracts the update into FMAs and
@@ -156,7 +157,7 @@ def test_k8_emulated_kernel_matches_jax_on_random_walks():
 
 
 def _k9_split(q, k, v, causal, window, cap):
-    """csrc/flash_attention.cu's one-pass wide form in float32: query tiles
+    """csrc/flash_attention.cu's f32-arithmetic form in float32: query tiles
     of 64 folded rows, key tiles of 64 from the first one a tile needs,
     partial scores over 128-column slices of D summed in rank order, the
     cap before the masks, the online softmax, l floored at 1e-30."""
@@ -206,11 +207,14 @@ def _k9_split(q, k, v, causal, window, cap):
 
 
 @pytest.mark.parametrize("D,causal,window,cap", [(320, True, None, 50.0),
-                                                 (512, True, 24, None)])
+                                                 (512, True, 24, None),
+                                                 (64, True, None, 30.0),
+                                                 (200, False, None, 50.0),
+                                                 (256, True, 24, None)])
 def test_k9_split_d_wide_form_matches_jax(D, causal, window, cap):
-    """Three and four blocks of 128 columns (the last of D = 320 holds 64),
-    g = 2, two query tiles (the second ragged) and a window that skips
-    key tiles."""
+    """One to four blocks of 128 columns (the last of D = 200 holds 72, of
+    D = 320 64), g = 2, two query tiles (the second ragged) and a window
+    that skips key tiles."""
     rng = np.random.default_rng(D)
     B, S, Hq, Hkv = 1, 70, 4, 2
     q = rng.normal(size=(B, S, Hq, D)).astype(np.float32)
