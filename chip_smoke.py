@@ -51,8 +51,20 @@
    its device span and its K5 device time);
    every DTW there runs in K5's form (a), "rows" (the band
    state does not fit K4's shared memory), so it must have launched and
-   K4 (in either form) and K5's other forms not; ids and distances equal
+   K4 (in any form) and K5's other forms not; ids and distances equal
    the kernel brute force for every query and no guard tripped;
+6b. drives the wide path, the paper's large windows: ``build_index`` ->
+   ``classify`` -> a warm ``nn_search`` (guards on) on the main path's
+   store at w = 307 (0.6 L, wide-a) and w = 512 (L, wide-b), and on the
+   long path's store at w = 3596 (0.2 L, wide-c), each case in its own
+   count window (the ``kernels`` line sums them); every DTW there runs in
+   K4's slots form, never its warp or block form nor K5; ids equal the
+   kernel brute force (64 queries of the main store, all 16 of the long
+   one) with distances bit-equal, no guard trips, ``degraded`` 0; the
+   warm search runs once more with K4 forced into its block form, outside
+   the windows, and must return the same ids, distances and n_dtw; one
+   ``wide path:`` line a case, with both warm walls (with ``--profile``,
+   a profile of wide-b's and wide-c's warm search);
 7. LM serve phase, at full width with random weights drawn on the card
    from a seed (bf16 compute and KV cache), each request in its own
    launch-count window: gemma2-2b (26 layers) scores 2 prompts of 8192
@@ -78,10 +90,16 @@
    against the plain version over chunks of 512 candidates; K7 also at Q
    = 257, N = 65541 and on int8 storage off 16-byte alignment, with its
    issue floor (7 FP32 instructions per (q, n, j) at 128 lanes an SM a
-   clock, the card's maximum SM clock); K4 and K6 in each
-   of their two forms at the main path's input (the block form forced,
-   the forms timed in turns) and over the sweep, which crosses the warp
-   form's edge (wb = 255 / 256) and runs row blocks of 7; K1, K2 (both
+   clock, the card's maximum SM clock); K4 and K6 in their three forms
+   at the main path's input (the slots and block forms forced, the forms
+   timed in turns), in the slots form on wide-b's and wide-c's largest
+   rounds beside the block form and K5's rows form forced (all three
+   bit-equal, timed in turns; the slots form against the plain version
+   on wide-b's round and on pairs of wide-c's), and in every form that
+   holds the band over the sweep, which crosses the warp form's edge (wb = 255 /
+   256), runs the slots form in one warp and in several and runs row
+   blocks of 7, and in the slots form's cluster of two blocks (wb = 8300,
+   17 warps), K4 and K6 with cutoffs and without; K1, K2 (both
    forms) and K3 (both forms) also at the long path's inputs; K5 in each of its
    three forms, forced over the sweep and just over the K4/K5 crossover,
    form (a) also on the long path's largest round with its cutoffs and
@@ -159,6 +177,17 @@ SKETCH = dict(n_classes=8, n_train_per_class=8192, n_test_per_class=32,
 # past a block's shared memory, so every DTW runs in K5 (form (a), rows)
 LONG = dict(n_classes=8, n_train_per_class=128, n_test_per_class=2,
             length=17984, seed=7)
+# wide path: the paper's large windows on the main and long paths' stores
+# (each indexed again at its window): Table III's w = 0.6 L and w = L
+# (benchmarks/paper_tables.py WINDOW_FRACTIONS) at L = 512, and the UCR
+# example's default w = 0.2 L (examples/ucr_classification.py) on the
+# EigenWorms-length series; every band there (wb = 307, 511, 3596) is K4's
+# slots form's.  Not cut.
+WIDE = (("wide-a", "main", 0.6), ("wide-b", "main", 1.0),
+        ("wide-c", "long", 0.2))
+# queries of a main-store wide case held against the kernel brute force
+# (all of the long store's 16)
+WIDE_BRUTE_Q = 64
 # LM serve phase: the repo's gemma2-2b and falcon-mamba-7b configurations
 # at full width (all 26 and 64 layers), random weights drawn on the card
 # from LM_SEED, bf16 compute and KV cache.  The scoring request is the
@@ -232,6 +261,10 @@ PTXAS_SOURCES = ("dtw_band.cu", "mamba_scan.cu", "sketch.cu", "lb_keogh.cu",
 PTXAS_KERNELS = [
     (r"_Z20dtw_band_warp_kernelILi(\d+)ELb0E", "dtw_band", "M={}"),
     (r"_Z20dtw_band_warp_kernelILi(\d+)ELb1E", "dtw_band_step", "M={}"),
+    (r"_Z21dtw_band_slots_kernelILi(\d+)ELb0ELi(\d+)E", "dtw_band_slots",
+     "M={} CL={}"),
+    (r"_Z21dtw_band_slots_kernelILi(\d+)ELb1ELi(\d+)E",
+     "dtw_band_step_slots", "M={} CL={}"),
     (r"_Z15dtw_band_kernelILb0ELb0E", "dtw_band_block", "block"),
     (r"_Z15dtw_band_kernelILb1ELb0E", "dtw_band_step_block", "block"),
     (r"_Z17mamba_scan_kernelILi(\d+)ELb0E", "mamba_scan", "G={}"),
@@ -324,10 +357,13 @@ def occupancy_report(rep: dict) -> dict:
     """Add each redesigned instantiation's resident warps per SM (CUDA's
     occupancy calculator at its launch's block size and shared memory)
     to a ``ptxas_report``: K4's and K6's warp form at the widest band of
-    each M, K10 at N = 8 G (its wide-state form past 256), K7 at the
+    each M, their slots form at the widest band of each instantiation
+    (one warp a pair of each M; 29 warps in a cluster of two blocks),
+    K10 at N = 8 G (its wide-state form past 256), K7 at the
     sketch path's S = 16, K9's f32-arithmetic form (8 warps a block; its
     blocks per SM too)."""
     from repro_torch.kernels import _build
+    from repro_torch.kernels.dtw_band import K4_SLOTS_ONE_WARP
 
     lib = _build.library()
     got = {}
@@ -337,6 +373,13 @@ def occupancy_report(rep: dict) -> dict:
                 (32 * m - 1) // 2, per_step)
     for g in (1, 2, 4, 8, 16, 32):
         got["mamba_scan", f"G={g}"] = lib.mamba_scan_occupancy(8 * g)
+    # the slots form's instantiations at the widest band each takes
+    for name, per_step in (("dtw_band_slots", 0), ("dtw_band_step_slots", 1)):
+        for m, cl, wb in ([(m, 1, (32 * m - 1) // 2)
+                           for m in K4_SLOTS_ONE_WARP]
+                          + [(32, 2, 14463)]):
+            got[name, f"M={m} CL={cl}"] = lib.dtw_band_slots_occupancy(
+                wb, m, per_step)
     got["mamba_scan_wide", "G=32"] = lib.mamba_scan_occupancy(257)
     got["sketch_bound", "kernel"] = lib.sketch_bound_occupancy(16)
     for bf16, label in ((0, "float32"), (1, "bfloat16")):
@@ -871,6 +914,118 @@ def run_long_path(torch, dev):
     return ds, index, cfg, recs, launches
 
 
+def run_wide_path(torch, dev, stores: dict, profile: bool):
+    """The wide path: for each case of ``WIDE``, build_index -> classify
+    -> a warm nn_search with guards on, counts set to 0 before the build
+    and read after classify, then the warm search once more with K4
+    forced into its block form (the same ids, distances and n_dtw; its
+    wall beside the slots form's); checks that K4 ran in its slots form only
+    (never the warp or block form, never K5), ids equal to the kernel brute
+    force with distances bit-equal, and no guard trip; prints one ``wide
+    path:`` line per case (with ``--profile``, a profile of the warm search
+    of wide-b and wide-c).  Returns the summed launch window and each
+    case's recorder of its largest DTW launch."""
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.dtw_band import k4_form, k4_slots
+    from repro_torch.search import (CascadeConfig, EngineConfig,
+                                    brute_force, build_index, classify,
+                                    nn_search)
+
+    total = dict.fromkeys(_build.COUNTS, 0)
+    recs = {}
+    for label, store, frac in WIDE:
+        ds = stores[store]
+        L = ds.length
+        w = int(frac * L)
+        check(k4_form(L, w) == "slots", f"{label}: k4_form({L}, {w}) is not "
+              "the slots form")
+        cfg = EngineConfig(cascade=CascadeConfig(w=w, v=V),
+                           verify_chunk=VERIFY_CHUNK, k=K)
+        rec = Recorder(ops, "dtw_band_cuda")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.synchronize()
+            _build.reset_counts()
+            t0 = time.perf_counter()
+            index = build_index(ds.x_train, w, ds.y_train, device=dev)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            pred, res = classify(index, ds.x_test, cfg)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            launches = _build.counts()
+            rec.restore()
+            _build.reset_counts()
+            t3 = time.perf_counter()
+            res2, guard = nn_search(index, ds.x_test, cfg, with_guards=True)
+            torch.cuda.synchronize()
+            t4 = time.perf_counter()
+            warm = _build.counts()
+        check_no_guard_trip(label, caught, guard)
+        # the same warm search with K4 forced into its block form (outside
+        # the count windows): the slots form's gain end to end
+        k4 = ops.dtw_band_cuda
+        ops.dtw_band_cuda = lambda *a, **kw: k4(*a, form="block", **kw)
+        try:
+            t5 = time.perf_counter()
+            res3 = nn_search(index, ds.x_test, cfg)
+            torch.cuda.synchronize()
+            t6 = time.perf_counter()
+        finally:
+            ops.dtw_band_cuda = k4
+        check(torch.equal(res3.idx, res.idx) and torch.equal(res3.dists,
+                                                             res.dists)
+              and torch.equal(res3.n_dtw, res.n_dtw),
+              f"{label}: the block form gave another result")
+        check(torch.equal(res2.idx, res.idx) and torch.equal(res2.dists,
+                                                             res.dists),
+              f"{label}: a repeated nn_search gave another result")
+        check(launches["dtw_band_slots"] > 0, f"{label}: K4's slots form "
+              "was not launched")
+        for other in ("dtw_band", "dtw_band_block", "dtw_band_stream",
+                      "dtw_band_stream_cluster", "dtw_band_stream_scratch"):
+            check(launches[other] == 0, f"{label}: {other} ran where k4_form "
+                  "picks the slots form")
+        check(torch.isfinite(res.dists).all().item(), f"{label}: non-finite "
+              "distances")
+        nq = len(ds.x_test) if store == "long" else WIDE_BRUTE_Q
+        t7 = time.perf_counter()
+        bd, bi = brute_force(index, ds.x_test[:nq], w, k=K)
+        torch.cuda.synchronize()
+        t8 = time.perf_counter()
+        check(torch.equal(bi, res.idx[:nq]),
+              f"{label}: ids differ from the kernel brute force")
+        check(torch.equal(bd, res.dists[:nq]),
+              f"{label}: distances not bit-equal to the kernel brute force")
+        for kname, n in launches.items():
+            total[kname] += n
+        recs[label] = rec
+        y = torch.as_tensor(ds.y_test, device=dev)
+        print("wide path: " + json.dumps({
+            "case": label, "store": store, "N": index.n, "L": L, "w": w,
+            "wb": min(w, L - 1), "slots_a_lane": k4_slots(L, w), "v": V,
+            "k": K, "Q": len(ds.x_test), "verify_chunk": VERIFY_CHUNK,
+            "build_index_s": t1 - t0, "classify_s": t2 - t1,
+            "nn_search_warm_s": t4 - t3,
+            "nn_search_warm_block_form_s": t6 - t5,
+            # the seeds' DTW launch, then one a round
+            "rounds_warm": warm["dtw_band_slots"] - 1,
+            "mean_n_dtw": res.n_dtw.float().mean().item(),
+            "pruning_power": res.pruning_power().mean().item(),
+            "lb_over_dtw_at_nn_median": lb_over_dtw_at_nn(torch, index,
+                                                          ds.x_test, res, w),
+            "accuracy": (pred.long() == y.long()).float().mean().item(),
+            "launches": {k: v for k, v in launches.items() if v},
+            "launches_warm": {k: v for k, v in warm.items() if v},
+            "guards": guard.summary(),
+            "brute_force_queries": nq, "brute_force_s": t8 - t7,
+            "largest_round_pairs": rec.args[0].shape[0]}))
+        if profile and label != "wide-a":
+            profile_search(torch, ds, index, cfg, f"{label} path")
+        del index, res, res2, res3, pred
+    return total, recs
+
+
 def guard_phase(torch, ds, main_index, main_cfg, dev) -> None:
     """A corrupted DTW route (``faults.corrupt_dtw(scale=0.05)``) on 4
     queries of the main-path store.
@@ -1386,11 +1541,12 @@ def band_ops(nb: int) -> int:
 
 
 def kernel_phases(torch, dev, recs, windows, sk_index, sk_queries,
-                  main_idx, main_queries, long_recs, ptxas):
+                  main_idx, main_queries, long_recs, wide_recs, ptxas):
     """Each kernel against its plain version at the paths' inputs (timed)
     and over a small sweep.  Returns the ``kernels`` records; a kernel's
-    ``{main,sketch,long}_path_launches`` are its counts in each path's
-    window (``windows``), ``launches`` their sum (one count per form).
+    ``{main,sketch,long,wide}_path_launches`` are its counts in each path's
+    window (``windows``; the wide path's sums its three cases'),
+    ``launches`` their sum (one count per form).
     ``ptxas`` (``ptxas_report``) adds the redesigned kernels' registers
     and spills to their records."""
     import torch.nn.functional as F
@@ -1402,8 +1558,9 @@ def kernel_phases(torch, dev, recs, windows, sk_index, sk_queries,
                                               K5_MAX_CLUSTER, K5_ROWS_MAX_L,
                                               STREAM_BLOCKS_PER_SM,
                                               dtw_band_cuda, dtw_band_route,
-                                              k4_form, k5_cluster_size,
-                                              k5_form)
+                                              k4_form, k4_slots,
+                                              k5_cluster_size, k5_form,
+                                              slots_warps)
     from repro_torch.kernels.envelope import envelope_cuda
     from repro_torch.kernels.lb_enhanced import lb_enhanced_cuda
     from repro_torch.kernels.lb_enhanced_pairwise import (
@@ -1659,10 +1816,11 @@ def kernel_phases(torch, dev, recs, windows, sk_index, sk_queries,
         **k3_long))
 
     # ---- K4 banded DTW, K6 its per-step form, K5 its band-streaming form
-    # K4 and K6 in each of their two forms at the main path's largest DTW
-    # launch (the path ran the warp form, which k4_form picks at w = 51),
-    # with the round's cutoffs and without: bit-equal to the plain version
-    # and to each other, and timed on the same card
+    # K4 and K6 in each of their three forms at the main path's largest DTW
+    # launch (the path ran the warp form, which k4_form picks at w = 51;
+    # the slots form forced runs one warp of 22 slots a lane), with the
+    # round's cutoffs and without: bit-equal to the plain version and to
+    # each other, and timed on the same card
     a, bb, w4, cut = recs["dtw_band_cuda"].args
     P, L = a.shape
     check(k4_form(L, w4) == "warp", f"k4_form({L}, {w4}) is not the warp "
@@ -1673,7 +1831,8 @@ def kernel_phases(torch, dev, recs, windows, sk_index, sk_queries,
                                                        row_block=1))
     check(torch.equal(plain6, plain4), "the plain K6 and K4 differ")
     k4e, k4t = {}, {}
-    for form in K4_FORMS:
+    main_forms = ("warp", "slots", "block")
+    for form in main_forms:
         k4_cut = dtw_band_cuda(a, bb, w4, cut, form=form)
         k4e[form] = max(
             compare(f"dtw_band {form} (round cutoffs)", k4_cut, plain4_cut,
@@ -1691,27 +1850,29 @@ def kernel_phases(torch, dev, recs, windows, sk_index, sk_queries,
                 a, bb, w4, early_exit=False, form=form), plain4, exact=True))
         compare(f"dtw_band_step {form} = K4 (round cutoffs)", dtw_band_cuda(
             a, bb, w4, cut, early_exit=False, form=form), k4_cut, exact=True)
-    # forms in turns (warp, block, block, warp), the mean of each pair
-    for form in K4_FORMS + K4_FORMS[::-1]:
+    # forms in turns (warp, slots, block, block, slots, warp), the mean of
+    # each pair
+    for form in main_forms + main_forms[::-1]:
         for kind, kw in (("", {}), ("cut_", {"cutoff": cut}),
                          ("step_", {"early_exit": False})):
             k4t.setdefault(kind + form, []).append(time_ms(
                 lambda: dtw_band_cuda(a, bb, w4, form=form, **kw), 20))
     k4t = {key: sum(v) / len(v) for key, v in k4t.items()}
-    # the sweep: K4 in both forms, K5 forced in its three and K6 in both,
-    # each against the plain version; wb = 255 / 256 straddle the warp
-    # form's edge
+    # the sweep: K4 in each form that holds the band, K5 forced in its
+    # three and K6 in K4's forms, each against the plain version; wb =
+    # 255 / 256 straddle the warp form's edge, and the slots form runs at
+    # one warp a pair (wb <= 256) and in two (wb = 1023)
     for Ps, Ls, ws in [(37, 33, 0), (37, 33, 1), (37, 33, 8), (37, 33, 33),
                        (20, 100, 25), (5, 513, 51), (3, 1, 0), (6, 2, 5),
-                       (4, 700, 700), (9, 64, 31), (9, 66, 32),
+                       (4, 700, 700), (9, 64, 31), (9, 66, 32), (6, 300, 100),
                        (4, 600, K4_WARP_MAX_WB),
-                       (4, 600, K4_WARP_MAX_WB + 1)]:
+                       (4, 600, K4_WARP_MAX_WB + 1), (2, 1100, 1023)]:
         xa, xb = randn(Ps, Ls), randn(Ps, Ls)
         exact_d = ref.dtw_band_ref(xa, xb, ws)
         cut_s = exact_d * (0.5 + torch.rand(Ps, generator=gen).to(dev))
         cut_s[::5] = float("-inf")                    # invalid slots
         wbs = min(ws, max(Ls - 1, 0))
-        forms = K4_FORMS if wbs <= K4_WARP_MAX_WB else ("block",)
+        forms = K4_FORMS if wbs <= K4_WARP_MAX_WB else K4_FORMS[1:]
         for cs, rb in ((None, None), (cut_s, None), (cut_s, 7)):
             want = ref.dtw_band_ref(xa, xb, ws, cs, row_block=rb)
             for form in forms:
@@ -1729,6 +1890,142 @@ def kernel_phases(torch, dev, recs, windows, sk_index, sk_queries,
                                   form=form),
                     ref.dtw_band_ref(xa, xb, ws, cut_s, row_block=1),
                     exact=True)
+    # the slots form's cluster of two blocks (wb = 8300 > 8191: 17 warps a
+    # pair, edges and check minima through distributed shared memory), K4
+    # and K6, without cutoffs and with cutoffs that kill a pair mid-sweep,
+    # let one finish and refuse one (-inf): bit-equal to one plain call
+    # that checks every step, K4 with row blocks of 1 (the plain version's
+    # time is its anti-diagonals', not its pairs', so each of the two pairs
+    # runs three times in it)
+    Lc, wc_ = 8400, 8300
+    check(k4_form(Lc, wc_) == "slots" and slots_warps(wc_, k4_slots(
+        Lc, wc_)) == 17, "(8400, 8300) is not the slots form's cluster")
+    xa, xb = randn(2, Lc).repeat(3, 1), randn(2, Lc).repeat(3, 1)
+    ex = dtw_band_cuda(xa[:2], xb[:2], wc_, form="block")
+    cut_c = torch.cat([torch.full((2,), float("inf"), device=dev),
+                       ex * torch.tensor([0.5, 1.01], device=dev),
+                       torch.tensor([float("-inf")], device=dev),
+                       ex[1:] * 0.97])
+    want = ref.dtw_band_ref(xa, xb, wc_, cut_c, row_block=1)
+    check(torch.isfinite(want[[0, 1, 3]]).all()
+          and torch.isposinf(want[[2, 4]]).all(),
+          "the cluster shape's cutoffs do not kill and spare as meant")
+    for early in (True, False):
+        compare(f"dtw_band{'' if early else '_step'} slots cluster "
+                f"(2 blocks, 17 warps) {(Lc, wc_)}", dtw_band_cuda(
+                    xa, xb, wc_, cut_c, row_block=1, early_exit=early),
+                want, exact=True)
+    # K4's slots form, and K6's, on the wide path's largest rounds: wide-b
+    # (L = 512, w = L; the row's shape) and wide-c (L = 17984, w = 0.2 L).
+    # In one call and in turns (slots, block, rows, rows, block, slots):
+    # the slots form, the block form forced and K5's rows form forced,
+    # without cutoffs; the three bit-equal on the whole round, with the
+    # round's cutoffs and without, and the slots form equal to the plain
+    # version (wide-b's whole round, LONG_SAMPLE pairs of wide-c's).
+    rivals = {"slots": {}, "block": {"form": "block"},
+              "rows": {"stream": True, "form": "rows"}}
+    wide = {}
+    for label, reps in (("wide-b", 5), ("wide-c", 2)):
+        wa, wb_, ww, wcut = wide_recs[label].args[:4]
+        Pw, Lw = wa.shape
+        check(k4_form(Lw, ww) == "slots", f"{label}'s round is not the "
+              "slots form's")
+        got = {f: dtw_band_cuda(wa, wb_, ww, **kw) for f, kw in rivals.items()}
+        got_c = {f: dtw_band_cuda(wa, wb_, ww, wcut, **kw)
+                 for f, kw in rivals.items()}
+        for f in ("block", "rows"):
+            compare(f"{label} round: {f} = slots", got[f], got["slots"],
+                    exact=True)
+            compare(f"{label} round (its cutoffs): {f} = slots", got_c[f],
+                    got_c["slots"], exact=True)
+        rec = dict(shape=f"P={Pw} L={Lw} w={ww} no cutoff ({label}'s largest "
+                         f"round; M = {k4_slots(Lw, ww)}, G = "
+                         f"{slots_warps(min(ww, Lw - 1), k4_slots(Lw, ww))})",
+                   cells=band_cells(Lw, ww) * Pw,
+                   bytes=8.0 * Pw * Lw + 8.0 * Pw)
+        if label == "wide-b":
+            plain_w, rec["plain_ms"] = timed(lambda: ref.dtw_band_ref(
+                wa, wb_, ww))
+            rec["err"] = max(
+                compare("dtw_band_slots (wide-b round)", got["slots"],
+                        plain_w, exact=True),
+                compare("dtw_band_slots (wide-b round, its cutoffs)",
+                        got_c["slots"], ref.dtw_band_ref(wa, wb_, ww, wcut),
+                        exact=True))
+            plain_w6, rec["plain6_ms"] = timed(lambda: ref.dtw_band_ref(
+                wa, wb_, ww, row_block=1))
+            check(torch.equal(plain_w6, plain_w), "the plain K6 and K4 "
+                  "differ on wide-b's round")
+            rec["err6"] = max(
+                compare("dtw_band_step_slots (wide-b round)", dtw_band_cuda(
+                    wa, wb_, ww, early_exit=False), plain_w, exact=True),
+                compare("dtw_band_step_slots (wide-b round, its cutoffs)",
+                        dtw_band_cuda(wa, wb_, ww, wcut, early_exit=False),
+                        got_c["slots"], exact=True))
+            rec["step_ms"] = time_ms(lambda: dtw_band_cuda(
+                wa, wb_, ww, early_exit=False), reps)
+            rec["cut_ms"] = time_ms(lambda: dtw_band_cuda(wa, wb_, ww, wcut),
+                                    reps)
+        else:
+            sel = torch.linspace(0, Pw - 1, min(LONG_SAMPLE, Pw),
+                                 device=dev).round().long()
+            sa_, sb_ = wa[sel].contiguous(), wb_[sel].contiguous()
+            sc_ = torch.as_tensor(wcut, device=dev).expand(Pw)[sel]
+            plain_s, rec["sample_plain_ms"] = timed(lambda: ref.dtw_band_ref(
+                sa_, sb_, ww, sc_))
+            rec["err"] = compare(
+                "dtw_band_slots (wide-c round pairs, cutoffs)",
+                dtw_band_cuda(sa_, sb_, ww, sc_), plain_s, exact=True)
+        ms = {}
+        for f in ("slots", "block", "rows", "rows", "block", "slots"):
+            ms.setdefault(f, []).append(time_ms(
+                lambda: dtw_band_cuda(wa, wb_, ww, **rivals[f]), reps,
+                warmup=1))
+        rec["ms"] = {f: sum(v) / len(v) for f, v in ms.items()}
+        rec["bound"] = bound(rec["bytes"], 5.0 * rec["cells"])
+        wide[label] = rec
+    wb_rec, wc_rec = wide["wide-b"], wide["wide-c"]
+    warp_cells_per_s = band_cells(L, w4) * P / (k4t["warp"] * 1e-3)
+    out.append(dict(
+        name="dtw_band_slots", route="cuda",
+        source="src/repro_torch/csrc/dtw_band.cu",
+        replaces="src/repro/kernels/dtw_band.py:323",
+        **path_launches("dtw_band_slots"),
+        max_abs_err=max(wb_rec["err"], wc_rec["err"]),
+        ms=wb_rec["ms"]["slots"], plain_ms=wb_rec["plain_ms"],
+        bound_ms=wb_rec["bound"][0], bound_by=wb_rec["bound"][1],
+        library_ms=None,
+        form="slots: G warps a pair, lane 32 w + l holding band slots "
+             "[(32 w + l) M, (32 w + l) M + M) in registers and its windows "
+             "of a and b, warp edges through shared memory, a __syncthreads "
+             "a step when G > 1",
+        shape=wb_rec["shape"], round_cutoffs_ms=wb_rec["cut_ms"],
+        block_ms=wb_rec["ms"]["block"], rows_ms=wb_rec["ms"]["rows"],
+        cells_per_s=wb_rec["cells"] / (wb_rec["ms"]["slots"] * 1e-3),
+        warp_form_main_path_cells_per_s=warp_cells_per_s,
+        wide_c_shape=wc_rec["shape"],
+        wide_c_ms=wc_rec["ms"]["slots"], wide_c_block_ms=wc_rec["ms"]["block"],
+        wide_c_rows_ms=wc_rec["ms"]["rows"],
+        wide_c_bound_ms=wc_rec["bound"][0],
+        wide_c_cells_per_s=wc_rec["cells"] / (wc_rec["ms"]["slots"] * 1e-3),
+        wide_c_sample_plain_ms=wc_rec["sample_plain_ms"],
+        main_input_ms=k4t["slots"], main_input_warp_ms=k4t["warp"],
+        main_input_err=k4e["slots"],
+        **ptxas.get("dtw_band_slots", {})))
+    out.append(dict(
+        name="dtw_band_step_slots", route="cuda",
+        source="src/repro_torch/csrc/dtw_band.cu",
+        replaces="src/repro/kernels/dtw_band.py:121",
+        **path_launches("dtw_band_step_slots"), max_abs_err=wb_rec["err6"],
+        ms=wb_rec["step_ms"], plain_ms=wb_rec["plain6_ms"],
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(wb_rec["bytes"], 6.0 * wb_rec["cells"]))),
+        library_ms=None, form="slots, a check and poisoning every step",
+        shape=wb_rec["shape"], k4_ms=wb_rec["ms"]["slots"],
+        main_input_ms=k4t["step_slots"],
+        main_input_warp_ms=k4t["step_warp"],
+        main_input_err=k4e["step_slots"],
+        **ptxas.get("dtw_band_step_slots", {})))
     bms, by = bound(8.0 * P * L + 8.0 * P, 5.0 * band_cells(L, w4) * P)
     # K6: K4's 5 operations per band cell plus the per-step frontier test,
     # one min per cell (each cell's minimum is taken once and carried to
@@ -1741,10 +2038,10 @@ def kernel_phases(torch, dev, recs, windows, sk_index, sk_queries,
                 f"{next(m for m in (2, 4, 8, 16) if 32 * m > 2 * w4)} "
                 "here), one shuffle a step, no block barrier",
         "block": "block: one block a pair, the two band buffers in shared "
-                 "memory, a __syncthreads a step (forced here; k4_form "
-                 f"picks it past wb = {K4_WARP_MAX_WB})",
+                 "memory, a __syncthreads a step (forced only: the slots "
+                 "form's baseline)",
     }
-    for form in K4_FORMS:
+    for form in ("warp", "block"):
         sfx = "" if form == "warp" else "_block"
         out.append(dict(
             name="dtw_band" + sfx, route="cuda",
@@ -1754,6 +2051,9 @@ def kernel_phases(torch, dev, recs, windows, sk_index, sk_queries,
             ms=k4t[form], plain_ms=plain4_ms, bound_ms=bms, bound_by=by,
             library_ms=None, form=forms4[form], shape=shape4,
             round_cutoffs_ms=k4t["cut_" + form],
+            **({} if form == "warp" else dict(
+                wide_b_round_ms=wb_rec["ms"]["block"],
+                wide_c_round_ms=wc_rec["ms"]["block"])),
             **ptxas.get("dtw_band" + sfx, {})))
         out.append(dict(
             name="dtw_band_step" + sfx, route="cuda",
@@ -2056,7 +2356,6 @@ def kernel_phases(torch, dev, recs, windows, sk_index, sk_queries,
         odd_envelopes_max_abs_err=odd_err,
         shape=f"Q={Q} C={C} L={L} w={main_idx.w}",
         **ptxas.get("lb_keogh", {})))
-
     return out
 
 
@@ -2498,14 +2797,17 @@ def main() -> int:
             profile_search(torch, ds, index, cfg, "main path")
             profile_search(torch, sk_ds, sk_index, sk_cfg, "sketch path")
             profile_search(torch, lg_ds, lg_index, lg_cfg, "long path")
+        wd_launches, wd_recs = run_wide_path(
+            torch, dev, {"main": ds, "long": lg_ds}, profile)
         windows = {"main": launches, "sketch": sk_launches,
-                   "long": lg_launches}
+                   "long": lg_launches, "wide": wd_launches}
         kernels = kernel_phases(torch, dev, recs, windows, sk_index,
                                 sk_ds.x_test, index, ds.x_test, lg_recs,
-                                ptxas)
+                                wd_recs, ptxas)
         # the LM phase needs the card's memory: falcon-mamba-7b's f32
         # weights and bf16 copy are 43.6 GB
         del ds, index, res, recs, sk_ds, sk_index, lg_ds, lg_index, lg_recs
+        del wd_recs
         gc.collect()
         torch.cuda.empty_cache()
         lm_windows, lm_recs = run_lm_phase(torch, dev, profile)

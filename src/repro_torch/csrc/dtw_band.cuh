@@ -1,6 +1,8 @@
 // The banded-DTW kernel body of K4's and K6's block form
-// (csrc/dtw_band.cu, for 255 < wb <= 14463) and of K5's scratch form
-// (csrc/dtw_band_stream.cu): (P, L) x (P, L) -> (P,) with a per-pair
+// (csrc/dtw_band.cu; run only when forced, as the same-call baseline of
+// the slots form that k4_form picks for 255 < wb <= 14463) and of K5's
+// scratch form (csrc/dtw_band_stream.cu, past wb = 231423 on a path):
+// (P, L) x (P, L) -> (P,) with a per-pair
 // cutoff.  Its recurrence is src/repro/core/dtw.py:band_step over the
 // band-packed state, diagonal offsets k in [0, 2wb]:
 //

@@ -1,6 +1,6 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``: nine sources,
-K1-K10; K4 and K6 share ``dtw_band.cu``, and their block form and K5's
-scratch form the body in ``dtw_band.cuh``).
+K1-K10; K4 and K6 share ``dtw_band.cu`` (three forms), and their block
+form and K5's scratch form the body in ``dtw_band.cuh``).
 
 Each source is compiled by its own ``nvcc`` process, all started together,
 for ``sm_90a``; the objects are linked into one shared library with a
@@ -46,6 +46,9 @@ _SIGNATURES = {
     "dtw_band_step_launch": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
     "dtw_band_block_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
     "dtw_band_step_block_launch": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
+    "dtw_band_slots_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+    "dtw_band_step_slots_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _P],
+                                   _I),
     "dtw_band_stream_rows_launch": ([_P, _P, _P, _P, _LL, _I, _I, _I, _P],
                                     _I),
     "dtw_band_stream_cluster_launch": ([_P, _P, _P, _P, _LL, _I, _I, _I, _I,
@@ -67,6 +70,7 @@ _SIGNATURES = {
                                 _I, _P], _I),
     "mamba_scan_occupancy": ([_I], _I),
     "dtw_band_warp_occupancy": ([_I, _I], _I),
+    "dtw_band_slots_occupancy": ([_I, _I, _I], _I),
     "rt_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -159,8 +163,9 @@ def check(rc: int, what: str) -> None:
 # so a run can show that a path went through the kernel.
 COUNTS: dict[str, int] = dict.fromkeys(
     ("envelope", "lb_enhanced", "lb_enhanced_pairwise", "dtw_band",
-     "dtw_band_block", "dtw_band_stream", "dtw_band_stream_cluster",
-     "dtw_band_stream_scratch", "dtw_band_step", "dtw_band_step_block",
+     "dtw_band_slots", "dtw_band_block", "dtw_band_stream",
+     "dtw_band_stream_cluster", "dtw_band_stream_scratch", "dtw_band_step",
+     "dtw_band_step_slots", "dtw_band_step_block",
      "sketch_bound", "lb_keogh", "flash_attention",
      "flash_attention_f32", "mamba_scan", "mamba_scan_wide"), 0)
 

@@ -1,4 +1,4 @@
-"""Banded-DTW wrappers on the card: K4 and K6 (csrc/dtw_band.cu, two
+"""Banded-DTW wrappers on the card: K4 and K6 (csrc/dtw_band.cu, three
 forms) and K5 (csrc/dtw_band_stream.cu, three forms), one entry point,
 ``dtw_band_cuda``.
 
@@ -9,10 +9,15 @@ forms) and K5 (csrc/dtw_band_stream.cu, three forms), one entry point,
   search paths' w = 51), one warp per pair, lane l holding the band slots
   ``[l M, l M + M)`` in registers (M in {2, 4, 8, 16}), one warp shuffle
   a step for the neighbour outside the lane and none of the block's
-  barriers; ``"block"``, one block per pair, threads over the valid cells
-  of each anti-diagonal, the two previous anti-diagonals in shared memory
-  and a ``__syncthreads`` a step.
-- K6 replaces ``_dtw_band_kernel`` (``early_exit=False``): the same two
+  barriers; ``"slots"`` (255 < wb <= 14463, the paper's large windows),
+  the same slots over G = ceil((2 wb + 1) / (32 M)) warps a pair
+  (``k4_slots`` picks M), the slots at warp edges through shared memory
+  with one ``__syncthreads`` a step when G > 1, and each lane's windows
+  of the two series in registers.  A third form, ``"block"`` (one block
+  per pair, threads over the valid cells of each anti-diagonal, the two
+  previous anti-diagonals in shared memory and a ``__syncthreads`` a
+  step), runs only when forced, as the slots form's baseline.
+- K6 replaces ``_dtw_band_kernel`` (``early_exit=False``): the same three
   forms with the frontier tested at every anti-diagonal, dead state
   poisoned to ``+inf`` and no early return.  Equal outputs; a baseline.
 - K5 replaces ``_dtw_band_pallas_stream``, for bands whose two buffers
@@ -29,8 +34,9 @@ forms) and K5 (csrc/dtw_band_stream.cu, three forms), one entry point,
 
 K4's and K6's block form and K5's form ``"scratch"`` share one kernel
 body (``csrc/dtw_band.cuh``); the others have their own.  Each form has
-its own launch count: ``dtw_band`` and ``dtw_band_block`` (K4),
-``dtw_band_step`` and ``dtw_band_step_block`` (K6), ``dtw_band_stream``,
+its own launch count: ``dtw_band``, ``dtw_band_slots`` and
+``dtw_band_block`` (K4), ``dtw_band_step``, ``dtw_band_step_slots`` and
+``dtw_band_step_block`` (K6), ``dtw_band_stream``,
 ``dtw_band_stream_cluster`` and ``dtw_band_stream_scratch`` (K5).  Bound
 on this card: FP32 operations, 5 per band cell over ``L(2w+1) - w(w+1)``
 cells per pair (6 for K6), against 8 L bytes per pair.
@@ -63,8 +69,12 @@ K5_MAX_CLUSTER = 8
 K5_FORMS = ("rows", "cluster", "scratch")
 # K4's forms; the warp form holds the 2 wb + 1 slots of the band in 32
 # lanes of at most 16 registers
-K4_FORMS = ("warp", "block")
+K4_FORMS = ("warp", "slots", "block")
 K4_WARP_MAX_WB = (32 * 16 - 1) // 2
+# the slots form: one warp a pair of at least 22 slots a lane (fewer made
+# ptxas spill) while 32 lanes of at most 32 hold the band, else 32 slots a
+# lane in up to 16 warps a block, in a cluster of two blocks past that
+K4_SLOTS_ONE_WARP = range(22, 33, 2)
 # K5's scratch form: persistent-grid blocks per SM (fewer when there are
 # fewer pairs)
 STREAM_BLOCKS_PER_SM = 2
@@ -82,8 +92,23 @@ def dtw_band_route(L: int, w: int | None) -> str:
 def k4_form(L: int, w: int | None) -> str:
     """K4's (and K6's) form for ``(L, w)``: ``"warp"`` while the band's
     ``2 wb + 1`` slots fit a warp's registers (wb <= 255), else
-    ``"block"``."""
-    return "warp" if _band_width(L, w) <= K4_WARP_MAX_WB else "block"
+    ``"slots"`` (up to the K4/K5 crossover, wb <= 14463)."""
+    return "warp" if _band_width(L, w) <= K4_WARP_MAX_WB else "slots"
+
+
+def slots_warps(wb: int, m: int) -> int:
+    """The slots form's warps a pair: ``ceil((2 wb + 1) / (32 m))``."""
+    return -(-(2 * wb + 1) // (32 * m))
+
+
+def k4_slots(L: int, w: int | None) -> int:
+    """The slots form's slots a lane for ``(L, w)``: one warp a pair with
+    the fewest even slots (at least 22) while the band's ``2 wb + 1``
+    slots fit 32 lanes of 32 (wb <= 511), else 32 (2-16 warps a block up
+    to wb = 8191, a cluster of two blocks past that: 29 warps at
+    wb = 14463)."""
+    need = -(-(2 * _band_width(L, w) + 1) // 32)
+    return max(K4_SLOTS_ONE_WARP[0], need + (need & 1)) if need <= 32 else 32
 
 
 def k5_form(L: int, w: int | None) -> str:
@@ -198,9 +223,10 @@ def dtw_band_cuda(a: Tensor, b: Tensor, w: int | None = None, cutoff=None,
     else:
         # K4 (early exit) or K6, in form kform
         name = ("dtw_band" if early_exit else "dtw_band_step") + (
-            "_block" if kform == "block" else "")
+            "" if kform == "warp" else "_" + kform)
         args = [a.data_ptr(), b.data_ptr(), cut.data_ptr(), out.data_ptr(),
-                P, L, wb] + ([R] if early_exit else [])
+                P, L, wb] + ([R] if early_exit else []) + (
+                    [k4_slots(L, w)] if kform == "slots" else [])
         _build.check(getattr(lib, name + "_launch")(*args, sp), name)
         _build.COUNTS[name] += 1
     return out

@@ -6,7 +6,7 @@ made in a fixture, never at import).  Run on a machine with a card:
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
 Tolerances: envelopes, banded DTW (K4 and the per-step K6, each in its
-warp and block forms, and the three forms of the wide-band K5), the bands-only LB_ENHANCED and the sketch
+warp, slots and block forms, and the three forms of the wide-band K5), the bands-only LB_ENHANCED and the sketch
 bound are bit-equal with the same +-inf positions; the full
 LB_ENHANCED forms and LB_Keogh agree to rtol 1e-5, atol 1e-6 (their
 L-term sums run in another order).  Flash attention (K9) agrees with its
@@ -136,6 +136,13 @@ DTW_SWEEP = [(37, 33, 0), (37, 33, 1), (37, 33, 8), (37, 33, 33),
              (4, 700, 700)]
 
 
+def _holding_forms(L, w):
+    """K4's forms that hold the band of ``(L, w)``: all three up to
+    wb = 255, the slots and block forms past it."""
+    wb = min(w, max(L - 1, 0))
+    return K4_FORMS if wb <= K4_WARP_MAX_WB else K4_FORMS[1:]
+
+
 @pytest.mark.parametrize("P,L,w", DTW_SWEEP)
 def test_dtw_band_kernel_bit_equal_with_cutoffs(dev, P, L, w):
     """K4 in the form ``k4_form`` picks and in each form forced that
@@ -153,12 +160,12 @@ def test_dtw_band_kernel_bit_equal_with_cutoffs(dev, P, L, w):
     assert torch.isposinf(got[::5]).all()
     _check(dtw_band_cuda(a, b, w, cut, row_block=7),
            ref.dtw_band_ref(a, b, w, cut, row_block=7), exact=True)
-    for form in K4_FORMS if k4_form(L, w) == "warp" else ("block",):
+    for form in _holding_forms(L, w):
         _build.reset_counts()
         _check(dtw_band_cuda(a, b, w, form=form), exact, exact=True)
         _check(dtw_band_cuda(a, b, w, cut, row_block=7, form=form),
                ref.dtw_band_ref(a, b, w, cut, row_block=7), exact=True)
-        name = "dtw_band" if form == "warp" else "dtw_band_block"
+        name = "dtw_band" if form == "warp" else f"dtw_band_{form}"
         assert _build.counts()[name] == 2
         assert sum(_build.counts().values()) == 2
 
@@ -167,9 +174,9 @@ def test_dtw_band_kernel_bit_equal_with_cutoffs(dev, P, L, w):
                                 K4_WARP_MAX_WB + 1])
 def test_dtw_band_forms_at_the_warp_form_edges(dev, wb):
     """Bands at each warp-form slot count's edge (2, 4, 8, 16 slots a
-    lane) and just past the warp form (wb = 256 is the block form's):
-    both forms (where the warp form holds the band) and K6 bit-equal to
-    the plain version, with row-block cutoffs."""
+    lane) and just past the warp form (wb = 256 is the slots form's):
+    every form that holds the band and K6 bit-equal to the plain version,
+    with row-block cutoffs."""
     P, L = 6, 2 * wb + 3
     a, b = _rand(dev, 60, P, L), _rand(dev, 61, P, L)
     exact = ref.dtw_band_ref(a, b, wb)
@@ -177,7 +184,7 @@ def test_dtw_band_forms_at_the_warp_form_edges(dev, wb):
                                device=dev)
     want = ref.dtw_band_ref(a, b, wb, cut)
     want7 = ref.dtw_band_ref(a, b, wb, cut, row_block=7)
-    forms = K4_FORMS if wb <= K4_WARP_MAX_WB else ("block",)
+    forms = _holding_forms(L, wb)
     assert k4_form(L, wb) == forms[0]
     if wb > K4_WARP_MAX_WB:
         with pytest.raises(ValueError, match="warp form"):
@@ -190,6 +197,63 @@ def test_dtw_band_forms_at_the_warp_form_edges(dev, wb):
         _check(dtw_band_cuda(a, b, wb, cut, early_exit=False, form=form),
                ref.dtw_band_ref(a, b, wb, cut, row_block=1), exact=True)
     assert torch.isfinite(want[3:5]).all() and torch.isposinf(want[5])
+
+
+@pytest.mark.parametrize("wb", [256, 257, 300, 511, 1023, 4095, 7193,
+                                14463])
+@pytest.mark.parametrize("at_w_eq_L", [True, False])
+def test_slots_form_sweep(dev, wb, at_w_eq_L):
+    """K4's slots form and its K6 variant at bands across its range (one
+    warp a pair to wb = 511, 2-16 warps a block, a cluster of two blocks
+    past wb = 8191), at w = L (L = wb + 1) and inside a longer series,
+    without cutoffs, with cutoffs that let some pairs finish and kill
+    others (one -inf), with every pair dead (cutoff 0) and with row blocks
+    of 7: bit-equal to the plain version, one ``dtw_band_slots`` launch a
+    call of the op."""
+    P = 4
+    L = wb + 1 if at_w_eq_L else wb + 700
+    w = L if at_w_eq_L else wb
+    assert k4_form(L, w) == "slots"
+    a, b = _rand(dev, 70 + wb, P, L), _rand(dev, 71 + wb, P, L)
+    exact = ref.dtw_band_ref(a, b, w)
+    _build.reset_counts()
+    _check(ops.dtw_band_op(a, b, w), exact, exact=True)
+    assert _build.counts()["dtw_band_slots"] == 1
+    cut = exact * torch.tensor([0.5, 0.97, 1.01, float("-inf")], device=dev)
+    for rb in (None, 7, 1):
+        want = ref.dtw_band_ref(a, b, w, cut, row_block=rb)
+        _check(dtw_band_cuda(a, b, w, cut, row_block=rb), want, exact=True)
+    _check(dtw_band_cuda(a, b, w, cut, early_exit=False), want, exact=True)
+    got = dtw_band_cuda(a, b, w, cut)
+    assert torch.isfinite(got[2]) and torch.isposinf(got[3])
+    # every pair dead at the first check (cutoff 0), in K4 and K6
+    dead = torch.zeros(P, device=dev)
+    want = ref.dtw_band_ref(a, b, w, dead)
+    assert torch.isposinf(want).all()
+    for rb in (None, 7):
+        _check(dtw_band_cuda(a, b, w, dead, row_block=rb), want, exact=True)
+    _check(dtw_band_cuda(a, b, w, dead, early_exit=False), want, exact=True)
+
+
+def test_nn_search_at_large_windows_runs_the_slots_form(dev):
+    """w = L and w = 0.6 L on a small store of L = 600: every DTW of the
+    search runs in K4's slots form (never the warp or block form, nor
+    K5), ids and distances equal the card's brute force."""
+    ds = make_dataset(n_classes=2, n_train_per_class=32, n_test_per_class=2,
+                      length=600, seed=6)
+    L = ds.length
+    for w in (L, int(0.6 * L)):
+        cfg = EngineConfig(cascade=CascadeConfig(w=w, v=4), verify_chunk=8,
+                           k=1)
+        idx = build_index(ds.x_train, w, ds.y_train, device=dev)
+        _build.reset_counts()
+        res = nn_search(idx, ds.x_test, cfg)
+        counts = _build.counts()
+        assert counts["dtw_band_slots"] > 0
+        assert counts["dtw_band"] == counts["dtw_band_block"] == 0
+        assert counts["dtw_band_stream"] == 0
+        bd, bi = brute_force(idx, ds.x_test, w, k=1)
+        assert torch.equal(bi, res.idx) and torch.equal(bd, res.dists)
 
 
 @pytest.mark.parametrize("P,L,w", DTW_SWEEP)
@@ -215,7 +279,7 @@ def test_stream_and_step_kernels_bit_equal_at_the_sweep(dev, P, L, w):
         step = dtw_band_cuda(a, b, w, c, early_exit=False)
         _check(step, ref.dtw_band_ref(a, b, w, c, row_block=1), exact=True)
         _check(step, k4, exact=True)
-        for form in K4_FORMS if k4_form(L, w) == "warp" else ("block",):
+        for form in _holding_forms(L, w):
             _check(dtw_band_cuda(a, b, w, c, early_exit=False, form=form),
                    k4, exact=True)
 
@@ -263,6 +327,7 @@ def test_stream_kernel_just_over_the_crossover(dev):
     got = ops.dtw_band_op(a, b, L)
     assert _build.counts()["dtw_band_stream"] == 1
     assert _build.counts()["dtw_band"] == 0
+    assert _build.counts()["dtw_band_slots"] == 0
     assert _build.counts()["dtw_band_block"] == 0
     want = ref.dtw_band_ref(a, b, L)
     _check(got, want, exact=True)
@@ -348,7 +413,7 @@ def test_nn_search_routes_long_full_window_dtw_to_the_stream_kernel(dev):
     res = nn_search(idx, ds.x_test, cfg)
     counts = _build.counts()
     assert counts["dtw_band_stream"] > 0 and counts["dtw_band"] == 0
-    assert counts["dtw_band_block"] == 0
+    assert counts["dtw_band_slots"] == 0 and counts["dtw_band_block"] == 0
     bd, bi = brute_force(idx, ds.x_test, L, k=1)
     assert torch.equal(bi, res.idx) and torch.equal(bd, res.dists)
 
@@ -361,10 +426,11 @@ def test_wrappers_count_launches_and_refuse_bad_input(dev):
     dtw_band_cuda(x, x, 3, torch.zeros(4, device=dev))
     assert _build.counts() == {"envelope": 1, "lb_enhanced": 0,
                                "lb_enhanced_pairwise": 0, "dtw_band": 2,
+                               "dtw_band_slots": 0,
                                "dtw_band_block": 0, "dtw_band_stream": 0,
                                "dtw_band_stream_cluster": 0,
                                "dtw_band_stream_scratch": 0,
-                               "dtw_band_step": 0,
+                               "dtw_band_step": 0, "dtw_band_step_slots": 0,
                                "dtw_band_step_block": 0, "sketch_bound": 0,
                                "lb_keogh": 0, "flash_attention": 0,
                                "flash_attention_f32": 0,

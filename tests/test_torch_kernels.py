@@ -199,10 +199,11 @@ def test_pair_perm_round_trip():
 def test_launch_counters_reset_and_read():
     counts = _build.counts()
     assert set(counts) == {"envelope", "lb_enhanced", "lb_enhanced_pairwise",
-                           "dtw_band", "dtw_band_block", "dtw_band_stream",
-                           "dtw_band_stream_cluster",
+                           "dtw_band", "dtw_band_slots", "dtw_band_block",
+                           "dtw_band_stream", "dtw_band_stream_cluster",
                            "dtw_band_stream_scratch", "dtw_band_step",
-                           "dtw_band_step_block", "sketch_bound", "lb_keogh",
+                           "dtw_band_step_slots", "dtw_band_step_block",
+                           "sketch_bound", "lb_keogh",
                            "flash_attention", "flash_attention_f32",
                            "mamba_scan", "mamba_scan_wide"}
     _build.COUNTS["dtw_band"] += 3

@@ -138,7 +138,7 @@ def _pairs(seed, P, L):
 
 
 # (P, L, w, row_block): the GPU sweep's shapes, odd and even wb, and wb at
-# each M's edge and at the warp form's edge (255 | 256 is the block form)
+# each M's edge and at the warp form's edge (255 | 256 is the slots form)
 K4_CASES = [
     (7, 33, 0, None), (7, 33, 1, None), (7, 33, 8, 7), (5, 33, 33, None),
     (6, 100, 25, None), (3, 1, 0, None), (4, 2, 5, None),
@@ -174,9 +174,9 @@ def test_k4_warp_schedule_bit_equal_to_the_plain_version(P, L, w,
 
 def test_k4_form_edge():
     """The warp form takes bands of up to 2 * 255 + 1 = 511 slots, 16 a
-    lane; wider bands go to the block form."""
+    lane; wider bands go to the slots form."""
     assert K4_WARP_MAX_WB == 255
-    assert k4_form(1000, 255) == "warp" and k4_form(1000, 256) == "block"
+    assert k4_form(1000, 255) == "warp" and k4_form(1000, 256) == "slots"
     assert k4_form(200, 1000) == "warp"       # wb = L - 1 = 199
     assert k4_form(512, 51) == "warp" and _lanes_m(51) == 4
     assert _lanes_m(154) == 16 and _lanes_m(31) == 2 and _lanes_m(32) == 4
