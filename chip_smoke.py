@@ -134,6 +134,35 @@
    1024} and at B = 4, S = 2048, C = 8192, N = 512, bit-equal; K8 also
    over tiles and chunks cut ragged, at L = 17984, on random walks and on
    envelopes with lo > u and +-inf bounds, with its issue floor;
+8b. after the LM phase and every kernel's check and timing (a short
+   profiler session after the paper path saw no kernel on the H100
+   machine), drives the paper path, the paper's own cell
+   (``configs/paper_dtw.py`` ``PAPER_SEARCH``) on one card: N = 2^20 store series of L = 512 (the
+   store made by ``make_dataset`` in a background process started first,
+   its host seconds printed apart), Q = 2048 queries, w = 154, V = 4,
+   k = 1, ``candidate_chunk`` 512, ``verify_chunk`` 64, guards on:
+   ``build_index`` -> ``make_distributed_search`` on a one-rank NCCL
+   ``("data", "model")`` mesh -> the step over every query in blocks of
+   512, counts set to 0 before the build and read after the step, then a
+   warm repeat; ids and distances bit-equal to single-device
+   ``nn_search`` over the same blocks for all 2048 queries and to the
+   kernel brute force on 32 strided queries, no guard trip, only K1-K4
+   launched (K4 in its warp form); one ``paper path:`` line (with
+   ``--profile``, at the end of the run, a profile of a 128-query block's
+   warm step on the store indexed again);
+8c. drives the distributed sketch path: the sketch path's store through
+   ``calibrate_distributed_plan`` -> ``make_distributed_search(
+   with_sketch=True, plan=decision.plan, with_guards=True)`` on the same
+   mesh, counts set to 0 before the calibration and read after the step;
+   ids and distances equal to the sketch path's ``nn_search``, the merged
+   guard vector clean with the echo check counted, K7 launched; one
+   ``dist sketch path:`` line; then K1-K4 at the paper path's inputs (``paper_path_*`` keys: K1 over
+   the whole 2^20 store, K2's one launch over it for a query block, K3's
+   and K4's largest calls), bit-equal (K3 within rtol 1e-5), and adds
+   the two paths' launch windows to the records;
+8d. runs each ``examples_torch/`` script once at its defaults on the
+   card, in a subprocess: it must exit 0 and print its exactness verdict
+   as ``True``; one ``examples:`` line;
 9. prints one ``{"kernels": [...]}`` line and, last, the device line
    ``{"ok": true, "device": {...}}``.
 
@@ -146,9 +175,11 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -188,6 +219,27 @@ WIDE = (("wide-a", "main", 0.6), ("wide-b", "main", 1.0),
 # queries of a main-store wide case held against the kernel brute force
 # (all of the long store's 16)
 WIDE_BRUTE_Q = 64
+# paper path: the paper's own cell (configs/paper_dtw.py PAPER_SEARCH),
+# N = 2^20 store series of L = 512 (2 GiB of f32, 6 GiB with the
+# envelopes), Q = 2048 queries, w = 154 (0.3 L), V = 4, k = 1, through the
+# distributed step on a one-rank NCCL mesh.  Not cut.  The step runs over
+# query blocks of PAPER_BLOCK: a block's (Q, N) f32 bound matrix is 2 GiB
+# (the whole batch's 8 GiB, several of them live at once, with (Q, N, 4)
+# Kim terms).  At 128 queries a block (Q over the production mesh's
+# 16-way model axis) the step peaked at 11.7 GiB and single-device
+# nn_search at 19.7, with the device idle 0.44 of a block's step (PERF.md);
+# 512 fits the card and takes a quarter of the rounds.
+PAPER = dict(n_classes=8, n_train_per_class=131072, n_test_per_class=256,
+             length=512, seed=7)
+PAPER_BLOCK = 512
+PAPER_BRUTE_Q = 32
+# queries of the block --profile traces (a 512-query block's trace took
+# minutes to summarise)
+PAPER_PROFILE_Q = 128
+# the examples_torch/ scripts and the exactness verdict each prints
+EXAMPLES = {"quickstart.py": "every bound below DTW",
+            "ucr_classification.py": "exact vs brute force",
+            "distributed_search.py": "exact vs single-device brute force"}
 # LM serve phase: the repo's gemma2-2b and falcon-mamba-7b configurations
 # at full width (all 26 and 64 layers), random weights drawn on the card
 # from LM_SEED, bf16 compute and KV cache.  The scoring request is the
@@ -409,12 +461,43 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+# a pause between a profiler session's start and its first launch (see
+# prime_profiler)
+PROFILER_PAD_S = 0.2
+
 # the port's kernels by function name (the profiler's kernel names hold
 # these), to pick them out of a profile
 PORT_KERNELS = ("envelope_kernel", "lb_bands_kernel", "lb_enhanced_full",
                 "lb_enhanced_pairwise", "dtw_band", "sketch_bound_kernel",
                 "lb_keogh_kernel", "flash_fwd", "flash_f32",
                 "mamba_scan_kernel")
+
+
+def prime_profiler() -> None:
+    """Open profiler sessions, each pausing ``PROFILER_PAD_S`` before 8
+    tiny kernels, until one records all 8.  On the H100 machine a session that
+    starts long after the previous one loses its first kernel records: 3
+    of 3 after 60 s without a session, 11 of 20 after 45 s, and 3 of 3,
+    even behind a 0.1 s pause, after 60 s of launches; a session that
+    follows one that recorded its kernels loses none, and 0.1 s between a
+    session's start and its first launch brought back all 3 after 60 and
+    120 s idle.  So ``device_ms`` and ``profile_call`` call this and then
+    pause inside their session before launching."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.zeros(1, device="cuda")
+    for _ in range(10):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILER_PAD_S)
+            for _ in range(8):
+                x.add_(1.0)
+            torch.cuda.synchronize()
+        if sum(e.count for e in prof.key_averages()
+               if getattr(e, "device_type", None) == DeviceType.CUDA) >= 8:
+            return
 
 
 def device_ms(fn, key: str, reps: int = 20) -> float:
@@ -429,17 +512,22 @@ def device_ms(fn, key: str, reps: int = 20) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total, n = 0.0, 0
-    for e in prof.key_averages():
-        if key in e.key and getattr(e, "device_type", None) == \
-                DeviceType.CUDA:
-            total += getattr(e, "self_device_time_total", 0)
-            n += e.count
+    for _ in range(5):              # until the session saw every call
+        prime_profiler()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILER_PAD_S)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total, n = 0.0, 0
+        for e in prof.key_averages():
+            if key in e.key and getattr(e, "device_type", None) == \
+                    DeviceType.CUDA:
+                total += getattr(e, "self_device_time_total", 0)
+                n += e.count
+        if n >= reps:
+            break
     check(n > 0 and total > 0, f"the profiler saw no device time of {key}")
     return total / n / 1e3
 
@@ -1026,6 +1114,399 @@ def run_wide_path(torch, dev, stores: dict, profile: bool):
     return total, recs
 
 
+def start_paper_data(tmp: Path):
+    """Start ``make_dataset(**PAPER)`` in a background process writing its
+    arrays under ``tmp``: the generator loops in Python over 2^20 series
+    (minutes of host time), so it runs while the earlier paths use the
+    card.  Returns the process."""
+    import os
+
+    code = (
+        "import json, sys, time\n"
+        "import numpy as np\n"
+        "from repro_torch.data import make_dataset\n"
+        "t0 = time.perf_counter()\n"
+        "ds = make_dataset(**json.loads(sys.argv[2]))\n"
+        "sec = time.perf_counter() - t0\n"
+        "for f in ('x_train', 'y_train', 'x_test', 'y_test'):\n"
+        "    np.save(f'{sys.argv[1]}/{f}.npy', getattr(ds, f))\n"
+        "print(json.dumps({'make_dataset_s': sec}))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    return subprocess.Popen([sys.executable, "-c", code, str(tmp),
+                             json.dumps(PAPER)], env=env,
+                            stdout=subprocess.PIPE, text=True)
+
+
+def paper_data(proc, tmp: Path):
+    """Wait for ``start_paper_data``'s process; returns the dataset, the
+    generator's seconds and the seconds this process waited for it."""
+    import numpy as np
+
+    from repro_torch.data import Dataset
+
+    t0 = time.perf_counter()
+    out, _ = proc.communicate(timeout=900)
+    waited = time.perf_counter() - t0
+    check(proc.returncode == 0, f"the paper path's data process failed "
+          f"(exit {proc.returncode})")
+    arrays = {f: np.load(tmp / f"{f}.npy") for f in
+              ("x_train", "y_train", "x_test", "y_test")}
+    sec = json.loads(out.strip().splitlines()[-1])["make_dataset_s"]
+    return Dataset(**arrays), sec, waited
+
+
+def init_world(torch):
+    """A one-rank NCCL world (the distributed paths' mesh is (1, 1))."""
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+
+
+def run_paper_path(torch, dev, data):
+    """The paper's own cell (``configs/paper_dtw.py``) on one card:
+    ``build_index`` -> ``make_distributed_search`` on a one-rank NCCL
+    ``("data", "model")`` mesh -> the step over every query in blocks of
+    ``PAPER_BLOCK``, counts set to 0 before the build and read after the
+    step; then a warm repeat, the single-device ``nn_search`` over the same
+    blocks and the kernel brute force on ``PAPER_BRUTE_Q`` strided
+    queries.  Checks: ids and distances equal to ``nn_search`` for every
+    query and to the brute force on its sample, no guard trip, ``degraded``
+    0, only K1-K4 launched (K4 in its warp form).  Prints the ``paper
+    path:`` line; returns the launch window and the recorders."""
+    from repro_torch.configs.paper_dtw import PAPER_SEARCH as pc
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.dtw_band import k4_form
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.search import (CascadeConfig, EngineConfig, GuardReport,
+                                    brute_force, build_index,
+                                    make_distributed_search, nn_search,
+                                    shard_index)
+
+    ds, data_s, waited_s = data
+    N, L, Q, w = pc.n_store, pc.length, pc.n_queries, pc.w
+    check(ds.x_train.shape == (N, L) and ds.x_test.shape == (Q, L),
+          f"paper path: the store is {ds.x_train.shape}, the queries "
+          f"{ds.x_test.shape}")
+    check(k4_form(L, w) == "warp", f"k4_form({L}, {w}) is not the warp form")
+    cfg = EngineConfig(cascade=CascadeConfig(
+        w=w, v=pc.v, candidate_chunk=pc.candidate_chunk),
+        verify_chunk=pc.verify_chunk, k=pc.k)
+    mesh = make_host_mesh((1, 1), ("data", "model"))
+    recs = {n: Recorder(ops, n) for n in
+            ("envelope_cuda", "lb_enhanced_cuda",
+             "lb_enhanced_pairwise_cuda", "dtw_band_cuda")}
+    torch.cuda.reset_peak_memory_stats()
+
+    def blocks(fn, q):
+        return [fn(q[s:s + PAPER_BLOCK]) for s in range(0, Q, PAPER_BLOCK)]
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.synchronize()
+        _build.reset_counts()
+        t0 = time.perf_counter()
+        index = build_index(ds.x_train, w, ds.y_train, device=dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        sidx = shard_index(mesh, index)
+        step = make_distributed_search(mesh, cfg, with_guards=True)
+        leaves = (sidx.series, sidx.labels, sidx.upper, sidx.lower,
+                  sidx.kim, sidx.kim_ok)
+        q = torch.as_tensor(ds.x_test, device=dev)
+
+        def run_step():
+            outs = blocks(lambda qb: step(*leaves, qb), q)
+            guard = GuardReport.from_vector(outs[0][3])
+            for o in outs[1:]:
+                guard = guard.merge(GuardReport.from_vector(o[3]))
+            return tuple(torch.cat([o[j] for o in outs]) for j in range(3)) \
+                + (guard,)
+
+        d, i, n, guard = run_step()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = _build.counts()
+        for r in recs.values():
+            r.restore()
+        t3 = time.perf_counter()
+        d2, i2, n2, guard2 = run_step()
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated()
+    check_no_guard_trip("paper path", caught, guard)
+    check_no_guard_trip("paper path (warm)", [], guard2)
+    check(torch.equal(d2, d) and torch.equal(i2, i) and torch.equal(n2, n),
+          "paper path: the warm step gave another result")
+    for kname, cnt in launches.items():
+        want = kname in ("envelope", "lb_enhanced", "lb_enhanced_pairwise",
+                         "dtw_band")
+        check((cnt > 0) == want, f"paper path: {kname} launched {cnt} "
+              "times (only K1-K4 run there, K4 in its warp form)")
+    check(torch.isfinite(d).all().item(), "paper path: non-finite distances")
+    # the single-device engine over the same blocks
+    torch.cuda.reset_peak_memory_stats()
+    t5 = time.perf_counter()
+    ref_res = blocks(lambda qb: nn_search(index, qb, cfg), q)
+    torch.cuda.synchronize()
+    t6 = time.perf_counter()
+    nn_peak = torch.cuda.max_memory_allocated()
+    sd = torch.cat([r.dists for r in ref_res])
+    si = torch.cat([r.idx for r in ref_res])
+    sn = torch.cat([r.n_dtw for r in ref_res])
+    check(torch.equal(i, si), "paper path: ids differ from single-device "
+          "nn_search")
+    check(torch.equal(d, sd), "paper path: distances not bit-equal to "
+          "single-device nn_search")
+    sel = torch.arange(0, Q, Q // PAPER_BRUTE_Q, device=dev)
+    t7 = time.perf_counter()
+    bd, bi = brute_force(index, q[sel], w, k=pc.k, chunk=4096)
+    torch.cuda.synchronize()
+    t8 = time.perf_counter()
+    check(torch.equal(bi, i[sel]), "paper path: ids differ from the kernel "
+          "brute force")
+    check(torch.equal(bd, d[sel]), "paper path: distances not bit-equal to "
+          "the kernel brute force")
+    y = torch.as_tensor(ds.y_test, device=dev)
+    pred = index.labels[i[:, 0].long()]
+    print("paper path: " + json.dumps({
+        "config": pc.name, "N": N, "L": L, "Q": Q, "w": w, "v": pc.v,
+        "k": pc.k, "candidate_chunk": pc.candidate_chunk,
+        "verify_chunk": pc.verify_chunk, "mesh": "(1, 1) data x model, NCCL",
+        "query_block": PAPER_BLOCK, "make_dataset_host_s": data_s,
+        "make_dataset_wait_s": waited_s, "build_index_s": t1 - t0,
+        "step_cold_s": t2 - t1, "step_warm_s": t4 - t3,
+        "mean_n_dtw": n.float().mean().item(),
+        "pruning_power": 1.0 - n.float().mean().item() / N,
+        "nn_search_s": t6 - t5,
+        "nn_search_mean_n_dtw": sn.float().mean().item(),
+        "accuracy": (pred.long() == y.long()).float().mean().item(),
+        "max_memory_allocated_bytes": peak,
+        "nn_search_max_memory_allocated_bytes": nn_peak,
+        "launches": {k: v for k, v in launches.items() if v},
+        "guards": guard.summary(),
+        "brute_force_queries": PAPER_BRUTE_Q, "brute_force_s": t8 - t7,
+        "expected_verify": pc.expected_verify}))
+    del index, sidx, leaves, q, ref_res, step
+    return launches, recs
+
+
+def profile_paper_path(torch, dev, ds) -> None:
+    """``--profile``: the paper path's warm step on one block of
+    ``PAPER_PROFILE_Q`` queries, on the store indexed again.  It runs last:
+    a block of the paper path is hundreds of thousands of profiler events,
+    whose ``key_averages`` take minutes on the host, and later profiler
+    sessions in the process saw no device time after one such trace."""
+    from repro_torch.configs.paper_dtw import PAPER_SEARCH as pc
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.search import (CascadeConfig, EngineConfig,
+                                    build_index, make_distributed_search,
+                                    shard_index)
+
+    cfg = EngineConfig(cascade=CascadeConfig(
+        w=pc.w, v=pc.v, candidate_chunk=pc.candidate_chunk),
+        verify_chunk=pc.verify_chunk, k=pc.k)
+    mesh = make_host_mesh((1, 1), ("data", "model"))
+    sidx = shard_index(mesh, build_index(ds.x_train, pc.w, ds.y_train,
+                                         device=dev))
+    step = make_distributed_search(mesh, cfg, with_guards=True)
+    qb = torch.as_tensor(ds.x_test[:PAPER_PROFILE_Q], device=dev)
+    profile_call(torch, lambda: step(sidx.series, sidx.labels, sidx.upper,
+                                     sidx.lower, sidx.kim, sidx.kim_ok, qb),
+                 f"paper path, warm step of one {PAPER_PROFILE_Q}-query block")
+
+
+def run_dist_sketch_path(torch, sk_ds, sk_index, sk_cfg):
+    """The distributed sketch path: the sketch path's store (built with
+    ``sketch=16, calibrate=, mask=True``) through
+    ``calibrate_distributed_plan`` -> ``make_distributed_search(
+    with_sketch=True, plan=decision.plan, with_guards=True)`` on the
+    one-rank NCCL mesh, counts set to 0 before the calibration and read
+    after the step.  Checks: ids and distances equal to the sketch path's
+    single-device ``nn_search``, the merged guard vector clean with
+    ``conserve_checked > 0``, K7 launched.  Prints the ``dist sketch
+    path:`` line; returns the launch window."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.search import (GuardReport, calibrate_distributed_plan,
+                                    make_distributed_search, nn_search,
+                                    shard_index)
+
+    mesh = make_host_mesh((1, 1), ("data", "model"))
+    sidx = shard_index(mesh, sk_index)
+    leaves = (sidx.series, sidx.labels, sidx.upper, sidx.lower, sidx.kim,
+              sidx.kim_ok)
+    sketch = (sidx.sk_lo, sidx.sk_hi, sidx.sk_scale, sidx.live)
+    q = sk_ds.x_test
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.synchronize()
+        _build.reset_counts()
+        t0 = time.perf_counter()
+        decision = calibrate_distributed_plan(mesh, sk_cfg, *leaves, q,
+                                              *sketch)
+        step = make_distributed_search(mesh, sk_cfg, with_sketch=True,
+                                       plan=decision.plan, with_guards=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        d, i, n, gv = step(*leaves, q, *sketch)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = _build.counts()
+        t3 = time.perf_counter()
+        d2, i2, n2, _ = step(*leaves, q, *sketch)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+    guard = GuardReport.from_vector(gv)
+    check_no_guard_trip("dist sketch path", caught, guard)
+    check(guard.values()["conserve_checked"] > 0, "dist sketch path: the "
+          "echo check counted nothing")
+    check(launches["sketch_bound"] > 0, "dist sketch path: K7 was not "
+          "launched")
+    check(torch.equal(d2, d) and torch.equal(i2, i) and torch.equal(n2, n),
+          "dist sketch path: the warm step gave another result")
+    res = nn_search(sk_index, q, sk_cfg)
+    check(torch.equal(i, res.idx), "dist sketch path: ids differ from the "
+          "sketch path's single-device search")
+    check(torch.equal(d, res.dists), "dist sketch path: distances not "
+          "bit-equal to the sketch path's single-device search")
+    print("dist sketch path: " + json.dumps({
+        "N": sk_index.n, "L": sk_index.length, "Q": len(q),
+        "w": sk_cfg.cascade.w, "sketch_S": sk_index.sk_lo.shape[1],
+        "live_fraction": sk_index.live.float().mean().item(),
+        "mesh": "(1, 1) data x model, NCCL", "plan": decision.summary(),
+        "calibrate_s": t1 - t0, "step_cold_s": t2 - t1,
+        "step_warm_s": t4 - t3, "mean_n_dtw": n.float().mean().item(),
+        "nn_search_mean_n_dtw": res.n_dtw.float().mean().item(),
+        "launches": {k: v for k, v in launches.items() if v},
+        "guards": guard.summary()}))
+    return launches
+
+
+def run_examples(torch) -> None:
+    """Each ``examples_torch/`` script once at its defaults (on the card)
+    in a subprocess: it must exit 0 and print its exactness verdict as
+    ``True``.  Prints one ``examples:`` line."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    got = {}
+    for script, verdict in EXAMPLES.items():
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable,
+                              str(ROOT / "examples_torch" / script)],
+                             env=env, capture_output=True, text=True,
+                             timeout=600)
+        sec = time.perf_counter() - t0
+        check(out.returncode == 0, f"examples_torch/{script} failed (exit "
+              f"{out.returncode}): {out.stderr[-2000:]}")
+        lines = out.stdout.splitlines()
+        check(f"{verdict}: True" in lines, f"examples_torch/{script} did "
+              f"not report '{verdict}: True': {out.stdout[-2000:]}")
+        got[script] = {"s": sec, "last_lines": lines[-4:]}
+    print("examples: " + json.dumps(got))
+
+
+def paper_kernel_keys(torch, recs) -> dict:
+    """K1-K4 at the paper path's inputs against their plain versions
+    (K1 the whole store, K2 the bands tier's one launch over it, in
+    column blocks for the plain version; K3 and K4 their largest calls,
+    K4 with its cutoffs): ``paper_path_*`` keys for each record."""
+    from repro_torch.core.lower_bounds import _n_bands
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.dtw_band import dtw_band_cuda
+    from repro_torch.kernels.envelope import envelope_cuda
+    from repro_torch.kernels.lb_enhanced import lb_enhanced_cuda
+    from repro_torch.kernels.lb_enhanced_pairwise import (
+        lb_enhanced_pairwise_cuda)
+
+    keys = {}
+    b, w = recs["envelope_cuda"].args
+    N, L = b.shape
+    err = compare("envelope (paper path)", envelope_cuda(b, w),
+                  ref.envelope_ref(b, w), exact=True)
+    keys["envelope"] = dict(
+        paper_path_shape=f"N={N} L={L} w={w}", paper_path_max_abs_err=err,
+        paper_path_ms=time_ms(lambda: envelope_cuda(b, w), 5),
+        paper_path_plain_ms=time_ms(lambda: ref.envelope_ref(b, w), 2,
+                                    warmup=1),
+        paper_path_bound_ms=bound(12.0 * N * L, 6.0 * N * L)[0])
+
+    args = recs["lb_enhanced_cuda"].args
+    kw = recs["lb_enhanced_cuda"].kwargs
+    q, c, u, lo, w2, v = args
+    check(kw.get("bands_only") is True and c.shape[0] == N,
+          "paper path: the bands tier did not run one launch over the store")
+    Q, C = q.shape[0], c.shape[0]
+    got = lb_enhanced_cuda(*args, **kw)
+    blk = 65536
+
+    def plain():
+        return torch.cat([ref.lb_enhanced_ref(
+            q, c[s:s + blk], u[s:s + blk], lo[s:s + blk], w2, v,
+            bands_only=True) for s in range(0, C, blk)], dim=1)
+
+    err = compare("lb_enhanced bands (paper path)", got, plain(), exact=True)
+    nb = _n_bands(L, w2, v)
+    keys["lb_enhanced"] = dict(
+        paper_path_shape=f"Q={Q} C={C} L={L} w={w2} v={v} bands_only (a "
+                         "query block's tier call)",
+        paper_path_max_abs_err=err,
+        paper_path_ms=time_ms(lambda: lb_enhanced_cuda(*args, **kw), 10),
+        paper_path_plain_ms=time_ms(plain, 1, warmup=0),
+        paper_path_bound_ms=bound(4.0 * Q * C + 8.0 * nb * (Q + C),
+                                  float(band_ops(nb)) * Q * C)[0])
+
+    args = recs["lb_enhanced_pairwise_cuda"].args
+    kw = recs["lb_enhanced_pairwise_cuda"].kwargs
+    q, c, u, lo, w3, v = args
+    P = q.shape[0]
+    err = compare("lb_enhanced_pairwise (paper path)",
+                  lb_enhanced_pairwise_cuda(*args, **kw),
+                  ref.lb_enhanced_pairwise_ref(*args, **kw), exact=False)
+    live = kw.get("live")
+    n_live = P if live is None else int(live.sum().item())
+    nb = _n_bands(L, w3, v)
+    keys["lb_enhanced_pairwise"] = dict(
+        paper_path_shape=f"P={P} L={L} w={w3} v={v} live={n_live}",
+        paper_path_max_abs_err=err,
+        paper_path_ms=time_ms(lambda: lb_enhanced_pairwise_cuda(*args, **kw),
+                              20),
+        paper_path_plain_ms=time_ms(
+            lambda: ref.lb_enhanced_pairwise_ref(*args, **kw), 3),
+        # live pairs only: a dead tile is skipped
+        paper_path_bound_ms=bound(
+            12.0 * n_live * (L - 2 * nb) + 16.0 * nb * n_live + 4.0 * P,
+            6.0 * n_live * (L - 2 * nb) + float(band_ops(nb)) * n_live)[0])
+
+    a, bb, w4, cut = recs["dtw_band_cuda"].args
+    P = a.shape[0]
+    want, plain_ms = timed(lambda: ref.dtw_band_ref(a, bb, w4, cut))
+    err = compare("dtw_band (paper path, with cutoffs)",
+                  dtw_band_cuda(a, bb, w4, cut), want, exact=True)
+    err_nc = compare("dtw_band (paper path, no cutoff)",
+                     dtw_band_cuda(a, bb, w4), ref.dtw_band_ref(a, bb, w4),
+                     exact=True)
+    cells = band_cells(L, w4) * P
+    ms = time_ms(lambda: dtw_band_cuda(a, bb, w4), 10)
+    keys["dtw_band"] = dict(
+        paper_path_shape=f"P={P} L={L} w={w4} (the largest round), no "
+                         "cutoff",
+        paper_path_max_abs_err=max(err, err_nc), paper_path_ms=ms,
+        paper_path_cells_per_s=cells / (ms * 1e-3),
+        paper_path_with_cutoffs_ms=time_ms(
+            lambda: dtw_band_cuda(a, bb, w4, cut), 10),
+        paper_path_plain_with_cutoffs_ms=plain_ms,
+        paper_path_bound_ms=bound(8.0 * P * L + 8.0 * P, 5.0 * cells)[0])
+    return keys
+
+
 def guard_phase(torch, ds, main_index, main_cfg, dev) -> None:
     """A corrupted DTW route (``faults.corrupt_dtw(scale=0.05)``) on 4
     queries of the main-path store.
@@ -1151,8 +1632,10 @@ def profile_call(torch, fn, label: str) -> None:
 
     fn()
     torch.cuda.synchronize()
+    prime_profiler()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILER_PAD_S)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1544,8 +2027,9 @@ def kernel_phases(torch, dev, recs, windows, sk_index, sk_queries,
                   main_idx, main_queries, long_recs, wide_recs, ptxas):
     """Each kernel against its plain version at the paths' inputs (timed)
     and over a small sweep.  Returns the ``kernels`` records; a kernel's
-    ``{main,sketch,long,wide}_path_launches`` are its counts in each path's
-    window (``windows``; the wide path's sums its three cases'),
+    ``{main,sketch,long,wide}_path_launches`` are its counts in each
+    path's window (``windows``; the wide path's sums its three cases';
+    ``main`` adds the paper and dist windows after those paths run),
     ``launches`` their sum (one count per form).
     ``ptxas`` (``ptxas_report``) adds the redesigned kernels' registers
     and spills to their records."""
@@ -2757,6 +3241,15 @@ def main() -> int:
         print(f"chip_smoke: the port package is missing ({e}); run from "
               "the repository root", file=sys.stderr)
         return 1
+    import torch.distributed as dist
+
+    phases = {}
+
+    def phase(name: str) -> None:
+        phases[name] = round(time.perf_counter() - t_start, 1)
+
+    paper_tmp = Path(tempfile.mkdtemp(prefix="paper_data_"))
+    paper_proc = start_paper_data(paper_tmp)
     try:
         line = card_line()
         print(line)
@@ -2765,8 +3258,6 @@ def main() -> int:
               f"{torch.version.cuda})")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        import tempfile
-
         from repro_torch.kernels import _build
 
         t0 = time.perf_counter()
@@ -2779,6 +3270,7 @@ def main() -> int:
               f"{lib_path.name}")
         ptxas = occupancy_report(ptxas)
         print("ptxas: " + json.dumps(ptxas))
+        phase("build")
         dev = torch.device("cuda:0")
         ds, index, cfg, res, launches, recs = run_main_path(torch, dev)
         for kname in ("envelope", "lb_enhanced", "lb_enhanced_pairwise",
@@ -2788,10 +3280,13 @@ def main() -> int:
         check(launches["dtw_band_block"] == 0, "main path: K4 ran its block "
               "form at w = 51, where k4_form picks the warp form")
         check_search(torch, ds, index, cfg, res)
+        phase("main path")
         sk_ds, sk_index, sk_cfg, sk_launches = run_sketch_path(torch, dev)
+        phase("sketch path")
         guard_phase(torch, ds, index, cfg, dev)
         lg_ds, lg_index, lg_cfg, lg_recs, lg_launches = run_long_path(
             torch, dev)
+        phase("long path")
         profile = "--profile" in sys.argv[1:]
         if profile:
             profile_search(torch, ds, index, cfg, "main path")
@@ -2799,25 +3294,69 @@ def main() -> int:
             profile_search(torch, lg_ds, lg_index, lg_cfg, "long path")
         wd_launches, wd_recs = run_wide_path(
             torch, dev, {"main": ds, "long": lg_ds}, profile)
+        phase("wide path")
         windows = {"main": launches, "sketch": sk_launches,
                    "long": lg_launches, "wide": wd_launches}
         kernels = kernel_phases(torch, dev, recs, windows, sk_index,
                                 sk_ds.x_test, index, ds.x_test, lg_recs,
                                 wd_recs, ptxas)
+        phase("kernel phases")
         # the LM phase needs the card's memory: falcon-mamba-7b's f32
         # weights and bf16 copy are 43.6 GB
-        del ds, index, res, recs, sk_ds, sk_index, lg_ds, lg_index, lg_recs
-        del wd_recs
+        del ds, index, res, recs, lg_ds, lg_index, lg_recs, wd_recs
         gc.collect()
         torch.cuda.empty_cache()
         lm_windows, lm_recs = run_lm_phase(torch, dev, profile)
         kernels += lm_kernel_phases(torch, dev, lm_windows, lm_recs,
                                     ptxas)
         del lm_recs
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase("lm phase")
+        # the distributed paths come after every device_ms measurement:
+        # a short profiler session after the paper path saw no kernel
+        # (four calls on the H100 machine, with the sessions primed and
+        # retried); a long one, the paper path's profile, still did
+        init_world(torch)
+        pp_data = paper_data(paper_proc, paper_tmp)
+        pp_launches, pp_recs = run_paper_path(torch, dev, pp_data)
+        phase("paper path")
+        dt_launches = run_dist_sketch_path(torch, sk_ds, sk_index, sk_cfg)
+        del sk_ds, sk_index
+        phase("dist sketch path")
+        pkeys = paper_kernel_keys(torch, pp_recs)
+        del pp_recs
+        search_names = {rec["name"] for rec in kernels
+                        if "main_path_launches" in rec}
+        for rec in kernels:
+            if rec["name"] in search_names:
+                for path, counts in (("paper", pp_launches),
+                                     ("dist", dt_launches)):
+                    n = counts[rec.get("count", rec["name"])]
+                    rec[f"{path}_path_launches"] = n
+                    rec["launches"] += n
+            rec.update(pkeys.get(rec["name"], {}))
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase("paper kernel keys")
+        run_examples(torch)
+        phase("examples")
+        if profile:
+            profile_paper_path(torch, dev, pp_data[0])
+            phase("paper path profile")
+        del pp_data
         torch.cuda.synchronize()
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        if paper_proc.poll() is None:
+            paper_proc.kill()
+        paper_proc.wait()
+        shutil.rmtree(paper_tmp, ignore_errors=True)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    print("phase seconds (cumulative): " + json.dumps(phases))
     print(f"chip_smoke wall seconds: {time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

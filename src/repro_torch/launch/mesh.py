@@ -1,0 +1,65 @@
+"""Device meshes over a ``torch.distributed`` world (port of
+``repro.launch.mesh``).
+
+``make_host_mesh`` names the axes of the world's ranks, one rank a
+device, as ``jax.make_mesh`` names devices.  The world comes first: the
+caller runs ``torch.distributed.init_process_group`` with its address,
+world size and rank (gloo for a ``"cpu"`` mesh, NCCL for a ``"cuda"``
+one), since nothing tells a process of a cluster.
+
+``make_production_mesh`` (the 256- and 512-chip pod meshes) needs that
+many ranks and belongs to the distributed LM and launch modules, which
+are not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.device import resolve_device
+
+# the backend each mesh device type runs its collectives on; there is no
+# fallback from one to the other
+BACKENDS = {"cpu": "gloo", "cuda": "nccl"}
+
+
+def make_host_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *,
+                   device_type: str = "cuda"):
+    """A ``DeviceMesh`` of ``shape`` named ``axes`` over the whole world,
+    ranks in row-major order (``axes[0]`` major).
+
+    ``device_type="cuda"`` (the default) needs a card and a world whose
+    default group runs NCCL, and puts rank ``r`` on card ``r % count``;
+    ``"cpu"`` needs gloo.  Raises when the world is not initialised, its
+    size is not ``prod(shape)``, or its backend does not serve
+    ``device_type``.
+    """
+    from torch.distributed.device_mesh import init_device_mesh
+
+    shape, axes = tuple(int(s) for s in shape), tuple(axes)
+    if device_type not in BACKENDS:
+        raise ValueError(f"device_type {device_type!r}: use 'cuda' or 'cpu'")
+    if len(shape) != len(axes):
+        raise ValueError(f"shape {shape} and axes {axes} differ in length")
+    if device_type == "cuda":
+        resolve_device("cuda")
+    if not dist.is_initialized():
+        raise RuntimeError(
+            "make_host_mesh needs a torch.distributed world: call "
+            "init_process_group first (backend "
+            f"{BACKENDS[device_type]!r} for a {device_type!r} mesh)")
+    backend = str(dist.get_backend())
+    if BACKENDS[device_type] not in backend:
+        raise RuntimeError(
+            f"a {device_type!r} mesh runs its collectives on "
+            f"{BACKENDS[device_type]}; the world's backend is {backend}")
+    n = math.prod(shape)
+    if dist.get_world_size() != n:
+        raise RuntimeError(f"a {shape} mesh needs {n} ranks, the world has "
+                           f"{dist.get_world_size()}")
+    if device_type == "cuda":
+        torch.cuda.set_device(dist.get_rank() % torch.cuda.device_count())
+    return init_device_mesh(device_type, shape, mesh_dim_names=axes)

@@ -1,5 +1,5 @@
-"""Exact NN-DTW search: index, tier pipeline, cascade, planner, guards and
-engine."""
+"""Exact NN-DTW search: index, tier pipeline, cascade, planner, guards,
+engine and distributed search."""
 
 from repro_torch.search.cascade import (
     CascadeConfig,
@@ -11,6 +11,12 @@ from repro_torch.search.cascade import (
     lb_kim_tier,
     run_plan,
     staged_bounds,
+)
+from repro_torch.search.distributed import (
+    calibrate_distributed_plan,
+    gather_tier_stats,
+    make_distributed_search,
+    shard_index,
 )
 from repro_torch.search.engine import (
     EngineConfig,
@@ -60,12 +66,15 @@ __all__ = [
     "DTWIndex", "EngineConfig", "GuardConfig", "GuardReport",
     "GuardWarning", "PlanDecision", "PlannerConfig", "SearchResult",
     "SearchStats", "TierStats", "VerificationPlan", "bands_prefilter",
-    "brute_force", "build_index", "calibrate_plan",
+    "brute_force", "build_index", "calibrate_distributed_plan",
+    "calibrate_plan",
     "choose_survivor_budget", "classify", "compute_bounds", "default_plan",
-    "dense_plan", "enhanced_all_pairs", "get_tier", "index_from_numpy",
-    "kim_features", "lb_kim_tier", "list_tiers", "nn_search",
+    "dense_plan", "enhanced_all_pairs", "gather_tier_stats", "get_tier",
+    "index_from_numpy", "kim_features", "lb_kim_tier", "list_tiers",
+    "make_distributed_search", "nn_search",
     "optimise_plan", "preflight_engine", "register_tier",
-    "registered_tiers", "run_plan", "sketch_features", "staged_bounds",
+    "registered_tiers", "run_plan", "shard_index", "sketch_features",
+    "staged_bounds",
     "tier_cost_weight",
     "unregister_tier", "validate_series",
 ]

@@ -31,9 +31,12 @@ Fault-injection seams: ``testing/faults.py`` installs hooks into
 ``_FAULT_HOOKS``; production code does one dict lookup per seam, ``None``
 outside the harness.  The seams: ``tier_out``, ``compaction_cand``,
 ``packed_rows`` (cascade.run_plan), ``dtw_out`` (kernels/ops.py),
-``engine_count`` (engine) and ``sketch_feats`` (index.sketch_features).
-The JAX package's ``preflight_shard_map`` works around a jax bug and has
-no counterpart here.
+``engine_count`` (engine), ``sketch_feats`` (index.sketch_features) and
+``allgather_topk`` (the distributed step's top-k gather,
+search/distributed.py).  The JAX package's ``preflight_shard_map`` works
+around a jax 0.4 miscompile of ``jit(shard_map(while_loop))``, as does
+its distributed step's ``jit=`` argument; nothing here is compiled that
+way, so neither has a counterpart.
 """
 
 from __future__ import annotations

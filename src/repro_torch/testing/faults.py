@@ -11,11 +11,10 @@ block.  The seams and their hooks:
   ``dtw_out``          (d) -> d                     kernels/ops.py DTW
   ``engine_count``     (seg) -> seg                 a round's n_dtw increments
   ``sketch_feats``     (sk_lo, sk_hi) -> same       build-time quantiser
+  ``allgather_topk``   (d_all) -> d_all             distributed top-k gather
 
 Every injector is deterministic (fixed rows and scales, no random
-numbers), so a tripped guard reproduces exactly.  The JAX package's
-``shard_dropout`` belongs to distributed search, which the port does not
-have yet.
+numbers), so a tripped guard reproduces exactly.
 """
 
 from __future__ import annotations
@@ -166,3 +165,18 @@ def inward_quantiser(steps: int = 96):
         return lo.to(torch.int8), hi.to(torch.int8)
 
     return inject("sketch_feats", hook)
+
+
+def shard_dropout(shard: int = 0):
+    """A dead shard in the distributed top-k merge: shard ``shard``'s
+    all-gathered distances come back ``+inf`` on every rank (its
+    candidates vanish from every merge).  The step's echo check (each
+    shard must find its own top-k intact in the gather) trips conservation
+    on the dropped shard."""
+
+    def hook(d_all):
+        d_all = d_all.clone()
+        d_all[shard] = float("inf")
+        return d_all
+
+    return inject("allgather_topk", hook)

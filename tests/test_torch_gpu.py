@@ -911,3 +911,42 @@ def test_flash_attention_wide_form(dev, B, Sq, Skv, Hq, Hkv, D, causal,
         rel = ((g32 - w32).square().mean().sqrt()
                / w32.square().mean().sqrt()).item()
         assert rel <= 1e-2
+
+
+@pytest.mark.parametrize("global_budget", [False, True])
+def test_one_rank_nccl_step_equals_nn_search(dev, tmp_path, global_budget):
+    """The distributed step on a one-rank NCCL world ((1, 1) mesh) returns
+    ``nn_search``'s ids, distances and ``n_dtw`` on the card (one shard:
+    the global budget changes no bound), its merged guard vector clean."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.search import (GuardReport, make_distributed_search,
+                                    shard_index)
+
+    ds = make_dataset(n_classes=4, n_train_per_class=64,
+                      n_test_per_class=8, length=96, seed=5)
+    w = 9
+    cfg = EngineConfig(cascade=CascadeConfig(w=w, v=4, candidate_chunk=64,
+                                             adaptive_budget=False),
+                       verify_chunk=8, k=2)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'rdv'}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh((1, 1), ("data", "model"))
+        idx = build_index(ds.x_train, w, ds.y_train)
+        sidx = shard_index(mesh, idx)
+        step = make_distributed_search(mesh, cfg, with_guards=True,
+                                       global_budget=global_budget)
+        _build.reset_counts()
+        d, i, n, gv = step(sidx.series, sidx.labels, sidx.upper, sidx.lower,
+                           sidx.kim, sidx.kim_ok, ds.x_test)
+        assert all(_build.counts()[name] > 0 for name in
+                   ("lb_enhanced", "lb_enhanced_pairwise", "dtw_band"))
+        want = nn_search(idx, ds.x_test, cfg)
+        assert torch.equal(i, want.idx) and torch.equal(d, want.dists)
+        assert torch.equal(n, want.n_dtw)
+        rep = GuardReport.from_vector(gv)
+        assert rep.ok() and rep.values()["conserve_checked"] > 0
+    finally:
+        dist.destroy_process_group()

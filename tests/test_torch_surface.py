@@ -148,3 +148,70 @@ def test_staged_bounds_match_jax(w, k):
     np.testing.assert_allclose(res.seed_d.numpy(),
                                dm[qi, res.seed_idx.numpy()], rtol=1e-4,
                                atol=1e-5)
+
+
+def test_search_exports_every_name_of_the_reference_but_preflight_shard_map():
+    """``repro_torch.search`` exports the reference's names, distributed
+    search included; ``preflight_shard_map`` works around a jax bug."""
+    import repro.search as jsearch
+    import repro_torch.search as search
+
+    want = set(jsearch.__all__) - {"preflight_shard_map"}
+    assert want <= set(search.__all__)
+    assert all(hasattr(search, name) for name in search.__all__)
+    assert "preflight_shard_map" not in dir(search)
+
+
+def test_paper_search_config_is_the_reference_data():
+    import dataclasses
+
+    from repro.configs import paper_dtw as jpaper
+    from repro_torch.configs import ARCHS, paper_dtw
+
+    assert (dataclasses.asdict(paper_dtw.PAPER_SEARCH)
+            == dataclasses.asdict(jpaper.PAPER_SEARCH))
+    assert paper_dtw.PAPER_SEARCH.n_store == 2 ** 20
+    assert paper_dtw.PAPER_SEARCH.name not in ARCHS
+
+
+def test_distributed_modules_and_examples_import_no_jax():
+    """The slice's modules load neither JAX nor the JAX package, and the
+    examples import neither (their import statements, read from source)."""
+    import ast
+
+    code = (
+        "import sys, repro_torch.search.distributed, repro_torch.launch.mesh, "
+        "repro_torch.configs.paper_dtw, repro_torch.testing.faults; "
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro')]; "
+        "print(bad); sys.exit(1 if bad else 0)")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    scripts = sorted((ROOT / "examples_torch").glob("*.py"))
+    assert [p.name for p in scripts] == [
+        "distributed_search.py", "quickstart.py", "ucr_classification.py"]
+    for path in scripts + [ROOT / "chip_smoke.py"]:
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import) else
+                     [node.module or ""] if isinstance(node, ast.ImportFrom)
+                     else [])
+            for name in names:
+                assert name.split(".")[0] not in ("jax", "jaxlib", "repro"), \
+                    (path.name, name)
+
+
+def test_make_host_mesh_refuses_without_a_world_or_a_card(monkeypatch):
+    """The mesh needs a ``torch.distributed`` world, and a ``"cuda"`` mesh
+    (the default) a card: no fallback to the CPU."""
+    from repro_torch.launch import make_host_mesh
+
+    with pytest.raises(RuntimeError, match="init_process_group"):
+        make_host_mesh((1, 1), ("data", "model"), device_type="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_host_mesh((1, 1), ("data", "model"))
+    with pytest.raises(ValueError, match="device_type"):
+        make_host_mesh((1,), ("data",), device_type="tpu")
