@@ -7,10 +7,11 @@
 
 1. prints the card (``nvidia-smi`` name and power limit) and builds the
    nine CUDA sources of K1-K10 from ``src/repro_torch/csrc`` (``nvcc``,
-   ``sm_90a``, one process per source), compiling the five redesigned
+   ``sm_90a``, one process per source), compiling the six redesigned
    sources once more with ``-Xptxas -v`` alongside; prints a ``ptxas:``
    line (registers and spill bytes of each instantiation of K4's and K6's
-   warp form, of K10 and its wide-state form, of K7, of K8 and of K9's
+   warp form, of K10 and its wide-state form, of K7, of K8, of K2's full
+   form and of K9's
    f32-arithmetic form, and the resident warps per SM of K4's, K6's,
    K10's, K7's and K9's f32-arithmetic form, whose blocks per SM it also
    prints; any spill fails);
@@ -65,6 +66,19 @@
    the windows, and must return the same ids, distances and n_dtw; one
    ``wide path:`` line a case, with both warm walls (with ``--profile``,
    a profile of wide-b's and wide-c's warm search);
+6c. drives the dense path, the unstaged search (``CascadeConfig(
+   staged=False)``: ``dense_plan`` scores every pair with K2's full form,
+   the paper's baseline): ``build_index`` -> ``classify`` -> a warm
+   ``nn_search`` (guards on) on the main store at w = 51 (dense-a) and
+   w = L (dense-b), and on the sketch store with the sketch tier under its
+   build-time mask (dense-c, ``build_index(sketch=16, calibrate=<the sketch
+   path's staged config>, mask=True)``), each case in its own count window;
+   the warm search must launch K2's full form (count ``lb_enhanced_full``)
+   and not its bands form, give ids and distances equal to the staged
+   search on the same index and to the kernel brute force (64 queries),
+   trip no guard, ``degraded`` 0; one ``dense path:`` line a case with
+   both mean ``n_dtw`` (with ``--profile``, a profile of dense-a's warm
+   search); no other path may launch the full form;
 7. LM serve phase, at full width with random weights drawn on the card
    from a seed (bf16 compute and KV cache), each request in its own
    launch-count window: gemma2-2b (26 layers) scores 2 prompts of 8192
@@ -86,8 +100,13 @@
    small shapes (w in {0, 1, L/4, L}, odd L, cutoffs that kill pairs,
    ``live`` masks with all-dead tiles, ragged sizes); K2 at the path's
    whole-store launch, at the earlier chunk shape (C = 512) and as the
-   earlier chunked tier call (32 launches and a ``torch.cat``), its full form
-   against the plain version over chunks of 512 candidates; K7 also at Q
+   earlier chunked tier call (32 launches and a ``torch.cat``); K2's full
+   form at dense-a's tier call (with and without a live mask) and dense-c's
+   (under the store's mask) against the plain version over chunks of 512
+   candidates, over a sweep (nb = 0, 1, 4, 8, 9 and L / 2, ragged Q, C and
+   L, lo > u, NaN and +-inf envelopes, L = 17984), its bands part (infinite
+   envelopes) bit-equal to the bands form and K8 bit-equal to it at V = 0,
+   with its issue floor; K7 also at Q
    = 257, N = 65541 and on int8 storage off 16-byte alignment, with its
    issue floor (7 FP32 instructions per (q, n, j) at 128 lanes an SM a
    clock, the card's maximum SM clock); K4 and K6 in their three forms
@@ -156,10 +175,17 @@
    mesh, counts set to 0 before the calibration and read after the step;
    ids and distances equal to the sketch path's ``nn_search``, the merged
    guard vector clean with the echo check counted, K7 launched; one
-   ``dist sketch path:`` line; then K1-K4 at the paper path's inputs (``paper_path_*`` keys: K1 over
-   the whole 2^20 store, K2's one launch over it for a query block, K3's
-   and K4's largest calls), bit-equal (K3 within rtol 1e-5), and adds
-   the two paths' launch windows to the records;
+   ``dist sketch path:`` line; then dense-dist: the main store at w = 51
+   through ``make_distributed_search`` with the unstaged cascade on the
+   same mesh, ids and distances equal to dense-a's ``nn_search``, the
+   full form launched and the bands form not, its window added to the
+   dense path's, one ``dense path:`` line; then K1-K4 at the paper path's
+   inputs (``paper_path_*`` keys: K1 over the whole 2^20 store, K2's one
+   launch over it for a query block, and K2's full form over the same
+   block and store, timed with CUDA events and held against the plain
+   version over its first 512 candidates; K3's and K4's largest calls),
+   bit-equal (K3 and K2's full form within rtol 1e-5), and adds the
+   paper and dist launch windows to the records;
 8d. runs each ``examples_torch/`` script once at its defaults on the
    card, in a subprocess: it must exit 0 and print its exactness verdict
    as ``True``; one ``examples:`` line;
@@ -219,6 +245,16 @@ WIDE = (("wide-a", "main", 0.6), ("wide-b", "main", 1.0),
 # queries of a main-store wide case held against the kernel brute force
 # (all of the long store's 16)
 WIDE_BRUTE_Q = 64
+# dense path: the unstaged search (CascadeConfig(staged=False), the
+# paper's dense LB_ENHANCED^V on every pair: K2's full form) on the main
+# store at the main path's window (dense-a) and at w = L (dense-b, Table
+# III's widest), and on the sketch store under its build-time mask with
+# the sketch tier (dense-c); dense-dist runs dense-a through the
+# distributed step on the one-rank NCCL mesh, after the paper path (the
+# distributed paths come after every device_ms reading).  Not cut.
+DENSE = (("dense-a", "main", 0.1), ("dense-b", "main", 1.0),
+         ("dense-c", "sketch", 0.1))
+DENSE_BRUTE_Q = 64
 # paper path: the paper's own cell (configs/paper_dtw.py PAPER_SEARCH),
 # N = 2^20 store series of L = 512 (2 GiB of f32, 6 GiB with the
 # envelopes), Q = 2048 queries, w = 154 (0.3 L), V = 4, k = 1, through the
@@ -300,6 +336,15 @@ MAMBA_SWEEP = [(2, 33, 70, 4), (3, 100, 300, 16), (1, 17, 129, 64),
                (1, 70, 40, 128), (1, 40, 33, 256)]
 # K10's wide-state form: N in {257, 512, 1024}, ragged S and C
 MAMBA_WIDE_SWEEP = [(1, 40, 33, 257), (2, 37, 70, 512), (1, 20, 9, 1024)]
+# K2's full form: nb = 0 (pure Keogh), 1, 4, 8, 9 (the generic bands) and
+# L / 2 (an empty bridge at even L, one column at odd L); L not a multiple
+# of 4 or 32; Q < 8, C < 64; several 128 x 64 tiles, ragged; L = 17984
+K2_FULL_SWEEP = [
+    # Q, C, L, w, v
+    (5, 37, 33, 8, 0), (3, 70, 66, 1, 4), (130, 150, 100, 10, 4),
+    (9, 65, 64, 12, 8), (40, 129, 97, 20, 9), (7, 70, 16, 16, 8),
+    (6, 64, 17, 17, 9), (257, 200, 512, 51, 4), (4, 70, 17984, 179, 4),
+]
 
 
 class SmokeFailure(Exception):
@@ -309,7 +354,7 @@ class SmokeFailure(Exception):
 # ptxas reports of the redesigned kernels: the source, and for each
 # instantiation (mangled-name pattern) the record it belongs to and a label
 PTXAS_SOURCES = ("dtw_band.cu", "mamba_scan.cu", "sketch.cu", "lb_keogh.cu",
-                 "flash_attention.cu")
+                 "lb_enhanced.cu", "flash_attention.cu")
 PTXAS_KERNELS = [
     (r"_Z20dtw_band_warp_kernelILi(\d+)ELb0E", "dtw_band", "M={}"),
     (r"_Z20dtw_band_warp_kernelILi(\d+)ELb1E", "dtw_band_step", "M={}"),
@@ -323,6 +368,7 @@ PTXAS_KERNELS = [
     (r"_Z17mamba_scan_kernelILi(\d+)ELb1E", "mamba_scan_wide", "G={}"),
     (r"_Z19sketch_bound_kernel", "sketch_bound", "kernel"),
     (r"_Z15lb_keogh_kernel", "lb_keogh", "kernel"),
+    (r"_Z23lb_enhanced_full_kernelILi(\d+)E", "lb_enhanced_full", "NB={}"),
     (r"_ZN2fw16flash_f32_kernelIfE", "flash_attention_f32", "float32"),
     (r"_ZN2fw16flash_f32_kernelI13__nv_bfloat16E", "flash_attention_f32",
      "bfloat16"),
@@ -1114,6 +1160,197 @@ def run_wide_path(torch, dev, stores: dict, profile: bool):
     return total, recs
 
 
+def dense_case(torch, dev, label: str, ds, cfg, staged_cfg, build_kw: dict,
+               profile: bool):
+    """One case of the dense path: ``build_index`` -> ``classify`` -> a
+    warm ``nn_search`` with guards on under the unstaged ``cfg``, counts
+    set to 0 before the build and read after ``classify`` (and again for
+    the warm search alone), K2's tier call recorded; then, outside the
+    windows, the staged search ``staged_cfg`` on the same index and the
+    kernel brute force on ``DENSE_BRUTE_Q`` queries.  Checks: the full
+    form launched in the warm search and the bands form not, ids and
+    distances equal to the staged search's and to the brute force's, no
+    guard trip, ``degraded`` 0.  Prints one ``dense path:`` line; returns
+    the window, the recorder of K2 and the warm result."""
+    from repro_torch.kernels import _build, ops
+    from repro_torch.search import brute_force, build_index, classify, \
+        nn_search
+
+    w = cfg.cascade.w
+    rec = Recorder(ops, "lb_enhanced_cuda")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.synchronize()
+        _build.reset_counts()
+        t0 = time.perf_counter()
+        index = build_index(ds.x_train, w, ds.y_train, device=dev,
+                            **build_kw)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        pred, res = classify(index, ds.x_test, cfg)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = _build.counts()
+        rec.restore()
+        _build.reset_counts()
+        t3 = time.perf_counter()
+        res2, guard = nn_search(index, ds.x_test, cfg, with_guards=True)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        warm = _build.counts()
+    check_no_guard_trip(label, caught, guard)
+    check(not rec.kwargs.get("bands_only") and rec.args[1].shape[0]
+          == index.n, f"{label}: the dense tier did not run the full form "
+          "over the whole store")
+    check(warm["lb_enhanced_full"] > 0 and launches["lb_enhanced_full"] > 0,
+          f"{label}: K2's full form was not launched")
+    check(warm["lb_enhanced"] == 0, f"{label}: the warm unstaged search "
+          f"launched the bands form {warm['lb_enhanced']} times")
+    check(torch.equal(res2.idx, res.idx) and torch.equal(res2.dists,
+                                                         res.dists),
+          f"{label}: a repeated nn_search gave another result")
+    check(torch.isfinite(res.dists).all().item(), f"{label}: non-finite "
+          "distances")
+    # the staged search's first call on an index also sizes its survivor
+    # budget; the second is its warm time
+    st = nn_search(index, ds.x_test, staged_cfg)
+    torch.cuda.synchronize()
+    t5 = time.perf_counter()
+    st2 = nn_search(index, ds.x_test, staged_cfg)
+    torch.cuda.synchronize()
+    t6 = time.perf_counter()
+    check(torch.equal(st.idx, res.idx) and torch.equal(st.dists, res.dists)
+          and torch.equal(st2.idx, st.idx), f"{label}: ids or distances "
+          "differ from the staged search")
+    nq = DENSE_BRUTE_Q
+    t7 = time.perf_counter()
+    bd, bi = brute_force(index, ds.x_test[:nq], w, k=K)
+    torch.cuda.synchronize()
+    t8 = time.perf_counter()
+    check(torch.equal(bi, res.idx[:nq]),
+          f"{label}: ids differ from the kernel brute force")
+    check(torch.equal(bd, res.dists[:nq]),
+          f"{label}: distances not bit-equal to the kernel brute force")
+    y = torch.as_tensor(ds.y_test, device=dev)
+    print("dense path: " + json.dumps({
+        "case": label, "N": index.n, "L": ds.length, "w": w, "v": V, "k": K,
+        "Q": len(ds.x_test), "verify_chunk": cfg.verify_chunk,
+        "use_sketch": cfg.cascade.use_sketch,
+        "live_fraction": None if index.live is None
+        else index.live.float().mean().item(),
+        "build_index_s": t1 - t0, "classify_s": t2 - t1,
+        "nn_search_warm_s": t4 - t3, "staged_nn_search_warm_s": t6 - t5,
+        "mean_n_dtw": res.n_dtw.float().mean().item(),
+        "staged_mean_n_dtw": st.n_dtw.float().mean().item(),
+        "pruning_power": res.pruning_power().mean().item(),
+        "accuracy": (pred.long() == y.long()).float().mean().item(),
+        "lb_enhanced_full_launches": launches["lb_enhanced_full"],
+        "lb_enhanced_launches": launches["lb_enhanced"],
+        "launches": {k: v for k, v in launches.items() if v},
+        "launches_warm": {k: v for k, v in warm.items() if v},
+        "guards": guard.summary(),
+        "brute_force_queries": nq, "brute_force_s": t8 - t7}))
+    if profile and label == "dense-a":
+        profile_search(torch, ds, index, cfg, f"{label} path")
+    return launches, rec, res
+
+
+def run_dense_path(torch, dev, stores: dict, sk_cfg, profile: bool):
+    """The dense path: the unstaged search (``CascadeConfig(staged=False)``,
+    ``dense_plan``: every pair scored by K2's full form) on the main store
+    at w = 51 (dense-a) and w = L (dense-b), and on the sketch store under
+    its build-time mask with the sketch tier (dense-c; the mask comes from
+    the staged calibration ``sk_cfg``, against which it is also searched),
+    each case in its own count window (``dense_case``).  Returns the summed
+    window, the recorders of K2's tier calls by case and dense-a's
+    result."""
+    from repro_torch.kernels import _build
+    from repro_torch.search import CascadeConfig, EngineConfig
+
+    total = dict.fromkeys(_build.COUNTS, 0)
+    recs, res_a = {}, None
+    for label, store, frac in DENSE:
+        ds = stores[store]
+        w = int(frac * ds.length)
+        sketch = store == "sketch"
+        cfg = EngineConfig(cascade=CascadeConfig(
+            w=w, v=V, staged=False, use_sketch=sketch),
+            verify_chunk=VERIFY_CHUNK, k=K)
+        staged = sk_cfg if sketch else EngineConfig(
+            cascade=CascadeConfig(w=w, v=V), verify_chunk=VERIFY_CHUNK, k=K)
+        build_kw = dict(sketch=16, calibrate=sk_cfg, mask=True) if sketch \
+            else {}
+        launches, rec, res = dense_case(torch, dev, label, ds, cfg, staged,
+                                        build_kw, profile)
+        for kname, n in launches.items():
+            total[kname] += n
+        recs[label] = rec
+        if label == "dense-a":
+            res_a = res
+    return total, recs, res_a
+
+
+def run_dense_dist(torch, dev, ds, want):
+    """dense-dist: the main store at w = 51 through
+    ``make_distributed_search`` on the one-rank NCCL mesh with the
+    unstaged cascade (the dense plan), counts set to 0 before the build
+    and read after the step.  Checks: ids and distances equal to dense-a's
+    ``nn_search`` (``want``), the merged guard vector clean, the full
+    form launched and the bands form not.  Prints its ``dense path:``
+    line; returns the window."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.search import (CascadeConfig, EngineConfig, GuardReport,
+                                    build_index, make_distributed_search,
+                                    shard_index)
+
+    w = int(0.1 * ds.length)
+    cfg = EngineConfig(cascade=CascadeConfig(w=w, v=V, staged=False),
+                       verify_chunk=VERIFY_CHUNK, k=K)
+    mesh = make_host_mesh((1, 1), ("data", "model"))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.synchronize()
+        _build.reset_counts()
+        t0 = time.perf_counter()
+        sidx = shard_index(mesh, build_index(ds.x_train, w, ds.y_train,
+                                             device=dev))
+        step = make_distributed_search(mesh, cfg, with_guards=True)
+        leaves = (sidx.series, sidx.labels, sidx.upper, sidx.lower,
+                  sidx.kim, sidx.kim_ok)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        d, i, n, gv = step(*leaves, ds.x_test)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = _build.counts()
+        t3 = time.perf_counter()
+        d2, i2, n2, _ = step(*leaves, ds.x_test)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+    guard = GuardReport.from_vector(gv)
+    check_no_guard_trip("dense-dist", caught, guard)
+    check(launches["lb_enhanced_full"] > 0 and launches["lb_enhanced"] == 0,
+          f"dense-dist: K2 launches {launches['lb_enhanced_full']} full, "
+          f"{launches['lb_enhanced']} bands")
+    check(torch.equal(d2, d) and torch.equal(i2, i) and torch.equal(n2, n),
+          "dense-dist: the warm step gave another result")
+    check(torch.equal(i, want.idx) and torch.equal(d, want.dists),
+          "dense-dist: ids or distances differ from dense-a's nn_search")
+    print("dense path: " + json.dumps({
+        "case": "dense-dist", "N": ds.x_train.shape[0], "L": ds.length,
+        "w": w, "v": V, "k": K, "Q": len(ds.x_test),
+        "mesh": "(1, 1) data x model, NCCL", "build_s": t1 - t0,
+        "step_cold_s": t2 - t1, "step_warm_s": t4 - t3,
+        "mean_n_dtw": n.float().mean().item(),
+        "dense_a_mean_n_dtw": want.n_dtw.float().mean().item(),
+        "lb_enhanced_full_launches": launches["lb_enhanced_full"],
+        "lb_enhanced_launches": launches["lb_enhanced"],
+        "launches": {k: v for k, v in launches.items() if v},
+        "guards": guard.summary()}))
+    return launches
+
+
 def start_paper_data(tmp: Path):
     """Start ``make_dataset(**PAPER)`` in a background process writing its
     arrays under ``tmp``: the generator loops in Python over 2^20 series
@@ -1416,8 +1653,9 @@ def run_examples(torch) -> None:
 def paper_kernel_keys(torch, recs) -> dict:
     """K1-K4 at the paper path's inputs against their plain versions
     (K1 the whole store, K2 the bands tier's one launch over it, in
-    column blocks for the plain version; K3 and K4 their largest calls,
-    K4 with its cutoffs): ``paper_path_*`` keys for each record."""
+    column blocks for the plain version, and K2's full form over the same
+    block and store; K3 and K4 their largest calls, K4 with its cutoffs):
+    ``paper_path_*`` keys for each record."""
     from repro_torch.core.lower_bounds import _n_bands
     from repro_torch.kernels import ref
     from repro_torch.kernels.dtw_band import dtw_band_cuda
@@ -1462,6 +1700,29 @@ def paper_kernel_keys(torch, recs) -> dict:
         paper_path_plain_ms=time_ms(plain, 1, warmup=0),
         paper_path_bound_ms=bound(4.0 * Q * C + 8.0 * nb * (Q + C),
                                   float(band_ops(nb)) * Q * C)[0])
+
+    # K2's full form on the same block and store (the dense tier the
+    # paper path would run unstaged), CUDA events; the plain version over
+    # the first 512 candidates only (it materialises (Q, C, L))
+    err = compare("lb_enhanced_full (paper path, 512 candidates)",
+                  lb_enhanced_cuda(q, c, u, lo, w2, v)[:, :512],
+                  ref.lb_enhanced_ref(q, c[:512], u[:512], lo[:512], w2, v),
+                  exact=False)
+    props = torch.cuda.get_device_properties(q.device)
+    keys["lb_enhanced_full"] = dict(
+        paper_path_shape=f"Q={Q} C={C} L={L} w={w2} v={v} (a query block "
+                         "against the paper store)",
+        paper_path_max_abs_err=err,
+        paper_path_ms=time_ms(lambda: lb_enhanced_cuda(q, c, u, lo, w2, v),
+                              5),
+        paper_path_plain_512_candidates_ms=time_ms(
+            lambda: ref.lb_enhanced_ref(q, c[:512], u[:512], lo[:512], w2,
+                                        v), 2, warmup=1),
+        paper_path_bound_ms=bound(
+            4.0 * (Q * L + 3 * C * L) + 4.0 * Q * C,
+            float(band_ops(nb) + 5 * (L - 2 * nb) + 1) * Q * C)[0],
+        paper_path_issue_floor_ms=4.0 * Q * C * (L - 2 * nb) / (
+            props.multi_processor_count * 128 * max_sm_clock_hz()) * 1e3)
 
     args = recs["lb_enhanced_pairwise_cuda"].args
     kw = recs["lb_enhanced_pairwise_cuda"].kwargs
@@ -2024,7 +2285,8 @@ def band_ops(nb: int) -> int:
 
 
 def kernel_phases(torch, dev, recs, windows, sk_index, sk_queries,
-                  main_idx, main_queries, long_recs, wide_recs, ptxas):
+                  main_idx, main_queries, long_recs, wide_recs, dn_recs,
+                  ptxas):
     """Each kernel against its plain version at the paths' inputs (timed)
     and over a small sweep.  Returns the ``kernels`` records; a kernel's
     ``{main,sketch,long,wide}_path_launches`` are its counts in each
@@ -2157,9 +2419,6 @@ def kernel_phases(torch, dev, recs, windows, sk_index, sk_queries,
                   ref.lb_enhanced_ref(*args, **kw), exact=True)
     compare("lb_enhanced bands = chunked launches", lb_chunked(*args, **kw),
             lb_enhanced_cuda(*args, **kw), exact=True)
-    err_full = compare("lb_enhanced full",
-                       lb_enhanced_cuda(q, c, u, lo, w2, v),
-                       lb_plain(q, c, u, lo, w2, v), exact=False)
     # the sketch path's tier call: the sketch store under its live mask
     sq_ = torch.as_tensor(sk_queries, dtype=torch.float32, device=dev)
     sk_args = (sq_, sk_index.series, sk_index.upper, sk_index.lower, w2, v)
@@ -2183,10 +2442,6 @@ def kernel_phases(torch, dev, recs, windows, sk_index, sk_queries,
                                      bands_only=True),
                     ref.lb_enhanced_ref(qs, cs, us, ls, ws, vs, live=lv,
                                         bands_only=True), exact=True)
-            compare("lb_enhanced full sweep",
-                    lb_enhanced_cuda(qs, cs, us, ls, ws, vs, live=lv),
-                    ref.lb_enhanced_ref(qs, cs, us, ls, ws, vs, live=lv),
-                    exact=False)
     bms, by = bound(4.0 * Q * C + 8.0 * nb * (Q + C),
                     float(band_ops(nb)) * Q * C)
     Qs_, Cs_ = sq_.shape[0], sk_index.n
@@ -2232,19 +2487,117 @@ def kernel_phases(torch, dev, recs, windows, sk_index, sk_queries,
         sketch_store_bound_ms=bound(
             4.0 * Qs_ * Cs_ + 8.0 * nb * (Qs_ + Cs_) + Cs_,
             float(band_ops(nb)) * Qs_ * sk_live)[0],
-        full_form_max_abs_err=err_full,
-        full_form_ms=time_ms(lambda: lb_enhanced_cuda(q, c, u, lo, w2, v),
-                             20),
-        # q, c, u and lo read once, the matrix written once, against the
-        # bands' operations plus K8's 5 per column of the bridge and one
-        # add a pair
-        **dict(zip(("full_form_bound_ms", "full_form_bound_by"), bound(
-            4.0 * (Q * L + 3 * C * L) + 4.0 * Q * C,
-            float(band_ops(nb) + 5 * (L - 2 * nb) + 1) * Q * C))),
         long_path_shape=f"Q={Ql} C={Cl} L={Ll} w={wl} v={vl} bands_only",
         long_path_bound_ms=bound(4.0 * Ql * Cl + 8.0 * nbl * (Ql + Cl),
                                  float(band_ops(nbl)) * Ql * Cl)[0],
         **k2_long))
+
+    # ---- K2 full form (the dense path's enhanced_dense tier) --------------
+    # dense-a's tier call (the main store: Q = 256, C = 16384), with and
+    # without a live mask; its bands part (infinite envelopes make every
+    # bridge term 0) bit-equal to the bands form; K8 bit-equal to it at
+    # V = 0 (one body); dense-c's call under the sketch store's mask; the
+    # sweep of K2_FULL_SWEEP on real and odd envelopes (lo > u, +-inf, a
+    # NaN), NaN where the plain version has NaN
+    args = dn_recs["dense-a"].args
+    q, c, u, lo, w2, v = args
+    Q, L = q.shape
+    C = c.shape[0]
+    nb = _n_bands(L, w2, v)
+    err = compare("lb_enhanced_full (dense-a)", lb_enhanced_cuda(*args),
+                  lb_plain(*args), exact=False)
+    live = torch.rand(C, generator=gen).to(dev) > 0.3
+    live[:128] = False                            # two all-dead tiles
+    err_live = compare("lb_enhanced_full (dense-a, live)",
+                       lb_enhanced_cuda(*args, live=live),
+                       lb_plain(*args, live=live), exact=False)
+    inf = torch.full_like(c, float("inf"))
+    compare("lb_enhanced_full's bands = the bands form (dense-a)",
+            lb_enhanced_cuda(q, c, inf, -inf, w2, v),
+            lb_enhanced_cuda(*args, bands_only=True), exact=True)
+    del inf
+    compare("lb_keogh = lb_enhanced_full at V = 0 (dense-a)",
+            lb_keogh_cuda(q, u, lo), lb_enhanced_cuda(q, c, u, lo, w2, 0),
+            exact=True)
+    c_args, c_kw = dn_recs["dense-c"].args, dn_recs["dense-c"].kwargs
+    check(c_kw.get("live") is not None, "dense-c's tier call had no mask")
+    err_c = compare("lb_enhanced_full (dense-c, live mask)",
+                    lb_enhanced_cuda(*c_args, **c_kw),
+                    lb_plain(*c_args, **c_kw), exact=False)
+
+    def odd_envelopes(u_, lo_):
+        u_, lo_ = u_.clone(), lo_.clone()
+        Cs, Ls = u_.shape
+        u_[1, Ls // 2] = lo_[1, Ls // 2] - 3.0
+        lo_[2, 1:Ls - 1] = u_[2, 1:Ls - 1] + 0.5
+        u_[3, :] = float("inf")
+        lo_[4, :Ls // 2] = float("-inf")
+        lo_[Cs - 1, Ls // 3] = float("nan")
+        return u_, lo_
+
+    sweep_err = 0.0
+    for Qs, Cs, Ls, ws, vs in K2_FULL_SWEEP:
+        qs, cs = randn(Qs, Ls), randn(Cs, Ls)
+        us, ls = ref.envelope_ref(cs, ws)
+        lv = torch.rand(Cs, generator=gen).to(dev) > 0.3
+        lv[:64] = False                           # an all-dead tile
+        for odd in (False, True):
+            uu, ll = odd_envelopes(us, ls) if odd else (us, ls)
+            for lvv in (None, lv):
+                got = lb_enhanced_cuda(qs, cs, uu, ll, ws, vs, live=lvv)
+                want = ref.lb_enhanced_ref(qs, cs, uu, ll, ws, vs, live=lvv)
+                tag = f"lb_enhanced_full sweep {(Qs, Cs, Ls, ws, vs)}" + (
+                    " odd envelopes" if odd else "") + (
+                    " live" if lvv is not None else "")
+                check(torch.equal(torch.isnan(got), torch.isnan(want)),
+                      f"{tag}: NaN positions differ from the plain version")
+                ok = ~torch.isnan(want)
+                sweep_err = max(sweep_err, compare(tag, got[ok], want[ok],
+                                                   exact=False))
+        inf = torch.full_like(cs, float("inf"))
+        compare(f"lb_enhanced_full's bands {(Qs, Cs, Ls, ws, vs)}",
+                lb_enhanced_cuda(qs, cs, inf, -inf, ws, vs, live=lv),
+                lb_enhanced_cuda(qs, cs, us, ls, ws, vs, live=lv,
+                                 bands_only=True), exact=True)
+        compare(f"lb_keogh = lb_enhanced_full at V = 0 "
+                f"{(Qs, Cs, Ls, ws)}", lb_keogh_cuda(qs, us, ls),
+                lb_enhanced_cuda(qs, cs, us, ls, ws, 0), exact=True)
+    props = torch.cuda.get_device_properties(dev)
+    issue_hz = props.multi_processor_count * 128 * max_sm_clock_hz()
+    Qc, Cc = c_args[0].shape[0], c_args[1].shape[0]
+    c_live = int(c_kw["live"].sum().item())
+    out.append(dict(
+        name="lb_enhanced_full", route="cuda",
+        source="src/repro_torch/csrc/lb_enhanced.cu",
+        replaces="src/repro/kernels/lb_enhanced.py:132",
+        **path_launches("lb_enhanced_full"),
+        max_abs_err=max(err, err_live, err_c),
+        ms=time_ms(lambda: lb_enhanced_cuda(*args), 20),
+        plain_ms=time_ms(lambda: lb_plain(*args), 3),
+        # q, c, u and lo read once, the matrix written once, against the
+        # bands' operations plus K8's 5 per column of the bridge and one
+        # add a pair
+        **dict(zip(("bound_ms", "bound_by"), bound(
+            4.0 * (Q * L + 3 * C * L) + 4.0 * Q * C,
+            float(band_ops(nb) + 5 * (L - 2 * nb) + 1) * Q * C))),
+        library_ms=None,
+        # the bridge's 4 instructions a term at the FP32 issue rate
+        issue_floor_ms=4.0 * Q * C * (L - 2 * nb) / issue_hz * 1e3,
+        shape=f"Q={Q} C={C} L={L} w={w2} v={v} (dense-a's tier call: one "
+              "launch over the whole store)",
+        form="K8's body (kg_tile, csrc/lb_keogh.cuh) over the bridge [nb, "
+             "L - nb): 128 x 64 tiles, 8 x 4 a thread, 32-column cp.async "
+             "chunks, the !(lo <= u) vote; then the bands of the bands "
+             "form and one __fadd_rn(bands, bridge)",
+        live_max_abs_err=err_live, sweep_max_abs_err=sweep_err,
+        bands_bit_equal_to_bands_form=True, k8_bit_equal_at_v0=True,
+        dense_c_shape=f"Q={Qc} C={Cc} live={c_live} (dense-c's tier call)",
+        dense_c_max_abs_err=err_c,
+        dense_c_ms=time_ms(lambda: lb_enhanced_cuda(*c_args, **c_kw), 10),
+        dense_c_bound_ms=bound(
+            4.0 * (Qc * L + 3 * Cc * L) + 4.0 * Qc * Cc + Cc,
+            float(band_ops(nb) + 5 * (L - 2 * nb) + 1) * Qc * c_live)[0],
+        **ptxas.get("lb_enhanced_full", {})))
 
     # ---- K3 pairwise LB_ENHANCED ------------------------------------------
     args = recs["lb_enhanced_pairwise_cuda"].args
@@ -3295,15 +3648,24 @@ def main() -> int:
         wd_launches, wd_recs = run_wide_path(
             torch, dev, {"main": ds, "long": lg_ds}, profile)
         phase("wide path")
+        dn_launches, dn_recs, dn_res = run_dense_path(
+            torch, dev, {"main": ds, "sketch": sk_ds}, sk_cfg, profile)
+        phase("dense path")
         windows = {"main": launches, "sketch": sk_launches,
-                   "long": lg_launches, "wide": wd_launches}
+                   "long": lg_launches, "wide": wd_launches,
+                   "dense": dn_launches}
+        for path, counts in windows.items():
+            if path != "dense":
+                check(counts["lb_enhanced_full"] == 0, f"{path} path: K2's "
+                      "full form ran outside the dense path")
         kernels = kernel_phases(torch, dev, recs, windows, sk_index,
                                 sk_ds.x_test, index, ds.x_test, lg_recs,
-                                wd_recs, ptxas)
+                                wd_recs, dn_recs, ptxas)
         phase("kernel phases")
         # the LM phase needs the card's memory: falcon-mamba-7b's f32
         # weights and bf16 copy are 43.6 GB
-        del ds, index, res, recs, lg_ds, lg_index, lg_recs, wd_recs
+        main_ds = ds
+        del ds, index, res, recs, lg_ds, lg_index, lg_recs, wd_recs, dn_recs
         gc.collect()
         torch.cuda.empty_cache()
         lm_windows, lm_recs = run_lm_phase(torch, dev, profile)
@@ -3322,19 +3684,28 @@ def main() -> int:
         pp_launches, pp_recs = run_paper_path(torch, dev, pp_data)
         phase("paper path")
         dt_launches = run_dist_sketch_path(torch, sk_ds, sk_index, sk_cfg)
+        check(dt_launches["lb_enhanced_full"] == 0, "dist sketch path: K2's "
+              "full form ran outside the dense path")
         del sk_ds, sk_index
         phase("dist sketch path")
+        dd_launches = run_dense_dist(torch, dev, main_ds, dn_res)
+        del main_ds, dn_res
+        phase("dense-dist")
         pkeys = paper_kernel_keys(torch, pp_recs)
         del pp_recs
         search_names = {rec["name"] for rec in kernels
                         if "main_path_launches" in rec}
         for rec in kernels:
             if rec["name"] in search_names:
+                cname = rec.get("count", rec["name"])
                 for path, counts in (("paper", pp_launches),
                                      ("dist", dt_launches)):
-                    n = counts[rec.get("count", rec["name"])]
+                    n = counts[cname]
                     rec[f"{path}_path_launches"] = n
                     rec["launches"] += n
+                # dense-dist is a case of the dense path
+                rec["dense_path_launches"] += dd_launches[cname]
+                rec["launches"] += dd_launches[cname]
             rec.update(pkeys.get(rec["name"], {}))
         gc.collect()
         torch.cuda.empty_cache()

@@ -32,25 +32,46 @@
 // (chip_smoke.py computes the bound); the design reads every input byte
 // once per block and keeps every store coalesced.
 //
-// Full form (the `enhanced_dense` tier, on no path): the first design, one
-// thread per (query, candidate) pair, the bands by rt_band_sum and the
-// Keogh bridge over [nb, L - nb) through shared-memory tiles of the
-// queries and the envelopes, summed sequentially per pair (another order
-// than the plain version's reduction, hence a tolerance there).
+// Full form (the `enhanced_dense` tier: CascadeConfig(staged=False), whose
+// dense_plan scores every pair with the whole bound):
+// lb_enhanced_full_kernel.
+// LB_ENHANCED^V is the bands plus exactly K8's sum over the bridge
+// [nb, L - nb), so a block runs K8's body, kg_tile of csrc/lb_keogh.cuh,
+// over those columns: a 128 x 64 output tile, 8 x 4 sums a thread in
+// registers, 32-column chunks by cp.async into two buffers, a partial a
+// chunk, the !(lo <= u) vote (that header gives the bound and the design).
+// Then the block stages its tile's bridge sums ([query][candidate]) and
+// the 2 nb band columns of its queries and candidates ([column][row]) in
+// the freed buffers, and each thread walks one candidate down the tile's
+// queries (its band values in registers, the query's a broadcast), sums
+// the bands by lbb_bands<NB> (nb = 1..8; another nb by rt_band_sum from
+// device memory), bit-equal to the plain bands, and writes one unfused
+// __fadd_rn(bands, bridge), coalesced along candidates: the order of
+// core/lower_bounds.py.  At nb = 0 the bands are 0 and the output is K8's
+// sum bit for bit; at nb = L / 2 with L even the bridge is empty and the
+// output is the bands form's.  The bridge's sum runs in another order
+// than the plain version's reduction: the two agree to rtol 1e-5,
+// atol 1e-6.
 //
 // live (optional, one byte per candidate): a dead candidate gives -inf
-// down its column, and a block whose candidates are all dead writes its
-// -inf outputs and skips the compute.
-#include "common.cuh"
+// down its column, and a block whose candidates are all dead (padded
+// candidates count as dead) writes its -inf outputs and skips its copies
+// and compute.
+#include "lb_keogh.cuh"
 
 #include <stdint.h>
+
+#include <type_traits>
 
 #define LBB_TC 128          // bands form: candidates per block, one a thread
 #define LBB_TQ 32           // bands form: queries per block
 
-#define LBX_TC 32
-#define LBX_TQ 8
-#define LBX_CH 64
+// full form: the epilogue's bridge sums, [query][candidate] from float 0,
+// then the band columns, [column][query] and [column][candidate]
+#define LBF_OS (KG_TC + 4)
+#define LBF_BANDS (KG_TQ * LBF_OS)
+static_assert(LBF_BANDS + 16 * (KG_QS + KG_CS) <= 2 * KG_BUF,
+              "the full form's epilogue must fit the chunk buffers");
 
 // The bands of one pair from its staged values: v[k] is column k for
 // k < NB and column L - 2 NB + k for k >= NB, of the query (qv) and the
@@ -82,8 +103,8 @@ __device__ __forceinline__ float lbb_bands(const float (&qv)[2 * NB],
 }
 
 // Stage the 2 NB band columns of `rows` rows starting at `base` (row
-// stride L) into dst[k * stride + r * rstride].
-template <int NB>
+// stride L) into dst[k * stride + r * rstride], NT threads a block.
+template <int NB, int NT = LBB_TC>
 __device__ __forceinline__ void lbb_stage(const float* __restrict__ base,
                                           int rows, int L, bool vec,
                                           float* dst, int stride,
@@ -92,7 +113,7 @@ __device__ __forceinline__ void lbb_stage(const float* __restrict__ base,
     if constexpr (NB % 4 == 0) {
         if (vec) {
             constexpr int W4 = W / 4;
-            for (int e = threadIdx.x; e < rows * W4; e += LBB_TC) {
+            for (int e = threadIdx.x; e < rows * W4; e += NT) {
                 const int r = e / W4, k = 4 * (e % W4);
                 const int col = k < NB ? k : L - W + k;
                 const float4 x = *reinterpret_cast<const float4*>(
@@ -105,7 +126,7 @@ __device__ __forceinline__ void lbb_stage(const float* __restrict__ base,
             return;
         }
     }
-    for (int e = threadIdx.x; e < rows * W; e += LBB_TC) {
+    for (int e = threadIdx.x; e < rows * W; e += NT) {
         const int r = e / W, k = e % W;
         const int col = k < NB ? k : L - W + k;
         dst[k * stride + r * rstride] = base[(size_t)r * L + col];
@@ -162,69 +183,98 @@ lb_bands_kernel(const float* __restrict__ q, const float* __restrict__ c,
     }
 }
 
-__global__ void lb_enhanced_full_kernel(const float* __restrict__ q,
-                                        const float* __restrict__ c,
-                                        const float* __restrict__ u,
-                                        const float* __restrict__ lo,
-                                        const unsigned char* __restrict__ live,
-                                        float* __restrict__ out, int Q,
-                                        int C, int L, int nb) {
-    __shared__ float sq[LBX_TQ][LBX_CH];
-    __shared__ float su[LBX_TC][LBX_CH + 1];
-    __shared__ float sl[LBX_TC][LBX_CH + 1];
-    const int tx = threadIdx.x, ty = threadIdx.y;
-    const int ci = blockIdx.x * LBX_TC + tx;
-    const int qi = blockIdx.y * LBX_TQ + ty;
-    const bool in = (ci < C) && (qi < Q);
-    bool alive = true;
+// NB > 0: the bands staged for nb == NB; NB == 0: any nb (nb_any), the
+// bands read from device memory.
+template <int NB>
+__global__ void __launch_bounds__(KG_THREADS, 2)
+lb_enhanced_full_kernel(const float* __restrict__ q,
+                        const float* __restrict__ c,
+                        const float* __restrict__ u,
+                        const float* __restrict__ lo,
+                        const unsigned char* __restrict__ live,
+                        float* __restrict__ out, int Q, int C, int L,
+                        int nb_any, int vec) {
+    extern __shared__ float4 lbf_sm4[];
+    float* sm = reinterpret_cast<float*>(lbf_sm4);
+    const int tid = threadIdx.x;
+    const int q0 = blockIdx.y * KG_TQ, c0 = blockIdx.x * KG_TC;
+    const int nq = min(KG_TQ, Q - q0), ncand = min(KG_TC, C - c0);
+    const int nb = NB > 0 ? NB : nb_any;
+    // the epilogue's outputs: candidate cj, queries r0, r0 + 4, ...
+    constexpr int RSTEP = KG_THREADS / KG_TC;
+    const int cj = tid % KG_TC, r0 = tid / KG_TC;
+    const bool cin = cj < ncand;
+    bool alive = cin;
+    float* ocol = out + (size_t)q0 * C + c0 + cj;
     if (live != nullptr) {
-        alive = (ci < C) && live[ci] != 0;
+        alive = cin && live[c0 + cj] != 0;
         if (!__syncthreads_or(alive)) {          // all-dead candidate tile
-            if (in) out[(size_t)qi * C + ci] = -RT_INF;
+            if (cin)
+                for (int r = r0; r < nq; r += RSTEP)
+                    ocol[(size_t)r * C] = -RT_INF;
             return;
         }
     }
-
-    const float bands =
-        in ? rt_band_sum(q + (size_t)qi * L, c + (size_t)ci * L, L, nb) : 0.f;
-
-    float bridge = 0.f;
-    const int tid = ty * LBX_TC + tx;
-    const int nthreads = LBX_TC * LBX_TQ;
-    const int b1 = L - nb;
-    for (int s0 = nb; s0 < b1; s0 += LBX_CH) {
-        const int len = min(LBX_CH, b1 - s0);
-        for (int e = tid; e < LBX_TQ * LBX_CH; e += nthreads) {
-            const int r = e / LBX_CH, col = e % LBX_CH;
-            const int gq = blockIdx.y * LBX_TQ + r;
-            sq[r][col] = (gq < Q && col < len)
-                ? q[(size_t)gq * L + s0 + col] : 0.f;
-        }
-        for (int e = tid; e < LBX_TC * LBX_CH; e += nthreads) {
-            const int r = e / LBX_CH, col = e % LBX_CH;
-            const int gc = blockIdx.x * LBX_TC + r;
-            const bool ok = gc < C && col < len;
-            su[r][col] = ok ? u[(size_t)gc * L + s0 + col] : 0.f;
-            sl[r][col] = ok ? lo[(size_t)gc * L + s0 + col] : 0.f;
-        }
-        __syncthreads();
-        for (int j = 0; j < len; ++j) {
-            const float qv = sq[ty][j];
-            const float over = fmaxf(qv - su[tx][j], 0.f);
-            const float under = fmaxf(sl[tx][j] - qv, 0.f);
-            bridge += over * over + under * under;
-        }
-        __syncthreads();
+    kg_tile(q, u, lo, sm, Q, C, L, nb, L - 2 * nb,
+            [&](const float (&acc)[8][4], int, int, int ty, int tx) {
+        __syncthreads();                         // the buffers are free
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+            *reinterpret_cast<float4*>(
+                sm + (64 * (i / 4) + 4 * ty + i % 4) * LBF_OS + 4 * tx) =
+                make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    });
+    constexpr int W = NB > 0 ? 2 * NB : 1;
+    float* bq = sm + LBF_BANDS;                  // [column][query]
+    float* bc = bq + W * KG_QS;                  // [column][candidate]
+    if constexpr (NB > 0) {
+        lbb_stage<NB, KG_THREADS>(q + (size_t)q0 * L, nq, L, vec != 0, bq,
+                                  KG_QS, 1);
+        lbb_stage<NB, KG_THREADS>(c + (size_t)c0 * L, ncand, L, vec != 0,
+                                  bc, KG_CS, 1);
     }
-    if (in) out[(size_t)qi * C + ci] = alive ? bands + bridge : -RT_INF;
+    __syncthreads();
+    if (!cin) return;
+    if constexpr (NB > 0) {
+        float cv[W];
+#pragma unroll
+        for (int k = 0; k < W; ++k) cv[k] = bc[k * KG_CS + cj];
+#pragma unroll 1
+        for (int r = r0; r < nq; r += RSTEP) {
+            float qv[W];
+#pragma unroll
+            for (int k = 0; k < W; ++k) qv[k] = bq[k * KG_QS + r];
+            ocol[(size_t)r * C] =
+                alive ? __fadd_rn(lbb_bands<NB>(qv, cv), sm[r * LBF_OS + cj])
+                      : -RT_INF;
+        }
+    } else {
+        const float* cr = c + (size_t)(c0 + cj) * L;
+#pragma unroll 1
+        for (int r = r0; r < nq; r += RSTEP)
+            ocol[(size_t)r * C] =
+                alive ? __fadd_rn(rt_band_sum(q + (size_t)(q0 + r) * L, cr,
+                                              L, nb),
+                                  sm[r * LBF_OS + cj])
+                      : -RT_INF;
+    }
 }
 
-template <int NB>
-static void lbb_launch(dim3 grid, cudaStream_t s, const float* q,
-                       const float* c, const unsigned char* live, float* out,
-                       int Q, int C, int L, int nb, int vec) {
-    lb_bands_kernel<NB><<<grid, LBB_TC, 0, s>>>(q, c, live, out, Q, C, L, nb,
-                                                vec);
+// f(std::integral_constant<int, NB>()) for NB = nb in 1..8 (the unrolled
+// instantiations), NB = 0 (the generic one) for any other nb
+template <class F>
+static int lb_by_nb(int nb, F&& f) {
+    switch (nb) {
+        case 1: return f(std::integral_constant<int, 1>());
+        case 2: return f(std::integral_constant<int, 2>());
+        case 3: return f(std::integral_constant<int, 3>());
+        case 4: return f(std::integral_constant<int, 4>());
+        case 5: return f(std::integral_constant<int, 5>());
+        case 6: return f(std::integral_constant<int, 6>());
+        case 7: return f(std::integral_constant<int, 7>());
+        case 8: return f(std::integral_constant<int, 8>());
+        default: return f(std::integral_constant<int, 0>());
+    }
 }
 
 extern "C" int lb_enhanced_launch(const float* q, const float* c,
@@ -233,28 +283,28 @@ extern "C" int lb_enhanced_launch(const float* q, const float* c,
                                   int Q, int C, int L, int nb,
                                   int bands_only, void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
-    if (!bands_only) {
-        dim3 block(LBX_TC, LBX_TQ);
-        dim3 grid((C + LBX_TC - 1) / LBX_TC, (Q + LBX_TQ - 1) / LBX_TQ);
-        lb_enhanced_full_kernel<<<grid, block, 0, s>>>(q, c, u, lo, live, out,
-                                                       Q, C, L, nb);
-        return (int)cudaGetLastError();
-    }
-    dim3 grid((C + LBB_TC - 1) / LBB_TC, (Q + LBB_TQ - 1) / LBB_TQ);
-    // float4 staging: every row end 16-byte aligned
+    // float4 staging of the band columns: every row end 16-byte aligned
     const int vec = L % 4 == 0
         && ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(c))
             % 16) == 0;
-    switch (nb) {
-        case 1: lbb_launch<1>(grid, s, q, c, live, out, Q, C, L, nb, vec); break;
-        case 2: lbb_launch<2>(grid, s, q, c, live, out, Q, C, L, nb, vec); break;
-        case 3: lbb_launch<3>(grid, s, q, c, live, out, Q, C, L, nb, vec); break;
-        case 4: lbb_launch<4>(grid, s, q, c, live, out, Q, C, L, nb, vec); break;
-        case 5: lbb_launch<5>(grid, s, q, c, live, out, Q, C, L, nb, vec); break;
-        case 6: lbb_launch<6>(grid, s, q, c, live, out, Q, C, L, nb, vec); break;
-        case 7: lbb_launch<7>(grid, s, q, c, live, out, Q, C, L, nb, vec); break;
-        case 8: lbb_launch<8>(grid, s, q, c, live, out, Q, C, L, nb, vec); break;
-        default: lbb_launch<0>(grid, s, q, c, live, out, Q, C, L, nb, vec);
+    if (!bands_only) {
+        dim3 grid((C + KG_TC - 1) / KG_TC, (Q + KG_TQ - 1) / KG_TQ);
+        return lb_by_nb(nb, [&](auto k) {
+            constexpr int NB = decltype(k)::value;
+            cudaError_t e = cudaFuncSetAttribute(
+                lb_enhanced_full_kernel<NB>,
+                cudaFuncAttributeMaxDynamicSharedMemorySize, KG_SMEM);
+            if (e != cudaSuccess) return (int)e;
+            lb_enhanced_full_kernel<NB><<<grid, KG_THREADS, KG_SMEM, s>>>(
+                q, c, u, lo, live, out, Q, C, L, nb, vec);
+            return (int)cudaGetLastError();
+        });
     }
-    return (int)cudaGetLastError();
+    dim3 grid((C + LBB_TC - 1) / LBB_TC, (Q + LBB_TQ - 1) / LBB_TQ);
+    return lb_by_nb(nb, [&](auto k) {
+        constexpr int NB = decltype(k)::value;
+        lb_bands_kernel<NB><<<grid, LBB_TC, 0, s>>>(q, c, live, out, Q, C, L,
+                                                    nb, vec);
+        return (int)cudaGetLastError();
+    });
 }

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``: nine sources,
 K1-K10; K4 and K6 share ``dtw_band.cu`` (three forms), and their block
-form and K5's scratch form the body in ``dtw_band.cuh``).
+form and K5's scratch form the body in ``dtw_band.cuh``; K8 and K2's full
+form the body in ``lb_keogh.cuh``).
 
 Each source is compiled by its own ``nvcc`` process, all started together,
 for ``sm_90a``; the objects are linked into one shared library with a
@@ -162,8 +163,8 @@ def check(rc: int, what: str) -> None:
 # Launches of each kernel: its wrapper adds one per launch, nowhere else,
 # so a run can show that a path went through the kernel.
 COUNTS: dict[str, int] = dict.fromkeys(
-    ("envelope", "lb_enhanced", "lb_enhanced_pairwise", "dtw_band",
-     "dtw_band_slots", "dtw_band_block", "dtw_band_stream",
+    ("envelope", "lb_enhanced", "lb_enhanced_full", "lb_enhanced_pairwise",
+     "dtw_band", "dtw_band_slots", "dtw_band_block", "dtw_band_stream",
      "dtw_band_stream_cluster", "dtw_band_stream_scratch", "dtw_band_step",
      "dtw_band_step_slots", "dtw_band_step_block",
      "sketch_bound", "lb_keogh", "flash_attention",

@@ -8,11 +8,17 @@ the whole store: 4 bytes written and ~71 FP32 operations per pair at
 V = 4.  That form stages the first and last ``nb`` columns of a block's
 128 candidates and 32 queries in shared memory, keeps each candidate's
 band values in registers and writes its column coalesced; it is bit-equal
-to ``ref.lb_enhanced_ref``.  The full form (the ``enhanced_dense`` tier)
-gives each pair a thread and adds the Keogh bridge, with the query and
-envelope tiles staged through shared memory.  ``live`` (``(C,)``) turns
-dead candidates into ``-inf`` columns; an all-dead tile of candidates (128
-in the bands form, 32 in the full form) skips its compute.
+to ``ref.lb_enhanced_ref``.  The full form (the ``enhanced_dense`` tier of
+``CascadeConfig(staged=False)``) runs K8's clamp form over the bridge
+``[nb, L - nb)`` (the body ``kg_tile`` of ``csrc/lb_keogh.cuh``: 128 x 64
+output tiles, 8 x 4 sums a thread, ``cp.async`` chunks of 32 columns, a
+partial a chunk), then adds the bands, summed as the bands form sums them,
+in one unfused add; it agrees with ``ref.lb_enhanced_ref`` to rtol 1e-5,
+atol 1e-6 (its bridge sum runs in another order), and at V = 0 it is K8's
+sum bit for bit.  ``live`` (``(C,)``) turns dead candidates into ``-inf``
+columns; an all-dead tile of candidates (128 in the bands form, 64 in the
+full form) writes them and skips its copies and compute.  Each form has
+its own launch count: ``lb_enhanced`` (bands) and ``lb_enhanced_full``.
 """
 
 from __future__ import annotations
@@ -51,5 +57,5 @@ def lb_enhanced_cuda(q: Tensor, c: Tensor, u: Tensor, lo: Tensor, w: int,
         None if bands_only else lo.data_ptr(),
         None if lv is None else lv.data_ptr(), out.data_ptr(),
         Q, C, L, nb, int(bands_only), stream_ptr(q.device)), "lb_enhanced")
-    _build.COUNTS["lb_enhanced"] += 1
+    _build.COUNTS["lb_enhanced" if bands_only else "lb_enhanced_full"] += 1
     return out

@@ -12,7 +12,7 @@ so parallel test workers never contend for a port, and every join has a
 deadline (``DEADLINE`` seconds), so a hung world fails its tests.
 
 Data and configs are those of ``tests/test_distributed.py`` (the (4, 2)
-exact case, the skewed store of the global-budget and calibration cases,
+exact case, staged and unstaged, the skewed store of the global-budget and calibration cases,
 the masked sketch store, the multipod case) and of the distributed guard
 cases of ``tests/test_guards.py``.  Tolerances: ids and ``n_dtw`` equal to
 JAX's, distances within rtol 1e-5 (XLA contracts the DTW cell update into
@@ -96,6 +96,16 @@ d, i, n = step(sidx.series, sidx.labels, sidx.upper, sidx.lower, sidx.kim,
                sidx.kim_ok, jnp.asarray(ds.x_test))
 out["step"] = dict(d=np.asarray(d).tolist(), i=np.asarray(i).tolist(),
                    n=np.asarray(n).tolist())
+# (b), unstaged: the dense plan (every pair scored by LB_ENHANCED^V)
+cfg = EngineConfig(cascade=CascadeConfig(w=12, v=4, candidate_chunk=32,
+                                         use_pallas=False, staged=False),
+                   verify_chunk=8, k=2)
+step = make_distributed_search(mesh, cfg, data_axes=("data",),
+                               query_axis="model", jit=True)
+d, i, n = step(sidx.series, sidx.labels, sidx.upper, sidx.lower, sidx.kim,
+               sidx.kim_ok, jnp.asarray(ds.x_test))
+out["dense_step"] = dict(d=np.asarray(d).tolist(), i=np.asarray(i).tolist(),
+                         n=np.asarray(n).tolist())
 # (c) the allocation on the skewed store's bound matrix
 queries, series = _skewed()
 lb01 = _lb01(queries, series)
@@ -182,6 +192,10 @@ def _world8(rank: int) -> dict:
     if rank == 0:
         out["step_brute"] = brute_force(idx, ds.x_test, 12, k=2,
                                         use_kernels=False)
+    # (b), unstaged: the dense plan through the same step
+    out["dense_step"] = _run(
+        make_distributed_search(mesh, _cfg(12, 32, 8, 2, staged=False)),
+        sidx, ds.x_test)
 
     # (c): the allocation on :47's skewed store
     queries, series = _skewed()
@@ -422,7 +436,8 @@ def _assert_exact(got, brute):
 
 
 @pytest.mark.parametrize("key,brute", [
-    ("step", "step_brute"), ("skew_step", "skew_brute"),
+    ("step", "step_brute"), ("dense_step", "step_brute"),
+    ("skew_step", "skew_brute"),
     ("calib_step", "skew_brute"), ("sketch_step", "sketch_brute"),
     ("sketch_calib_step", "sketch_brute"),
     ("guard_step", "guard_brute"), ("pod_step", "pod_brute")])
@@ -446,6 +461,23 @@ def test_distributed_step_matches_jax_step(runs):
     np.testing.assert_array_equal(n.numpy(), np.asarray(jx["step"]["n"]))
     np.testing.assert_allclose(d.numpy(), np.asarray(jx["step"]["d"]),
                                rtol=1e-5)
+
+
+def test_unstaged_distributed_step_matches_jax_step(runs):
+    """(b), unstaged (``staged=False``: the dense plan): the (4, 2) step
+    against JAX's unstaged step on the same inputs, ids bit-equal,
+    ``n_dtw`` equal per query, distances within rtol 1e-5; ids and
+    distances equal to the staged step's."""
+    ranks, jx = _get(runs, "world8"), _get(runs, "jax")
+    d, i, n = _merged(ranks, "dense_step")
+    np.testing.assert_array_equal(i.numpy(),
+                                  np.asarray(jx["dense_step"]["i"]))
+    np.testing.assert_array_equal(n.numpy(),
+                                  np.asarray(jx["dense_step"]["n"]))
+    np.testing.assert_allclose(d.numpy(), np.asarray(jx["dense_step"]["d"]),
+                               rtol=1e-5)
+    sd, si, _ = _merged(ranks, "step")
+    assert torch.equal(si, i) and torch.equal(sd, d)
 
 
 def test_global_budget_limits_bit_equal_to_jax_and_skewed(runs):

@@ -425,6 +425,7 @@ def test_wrappers_count_launches_and_refuse_bad_input(dev):
     dtw_band_cuda(x, x, 3)
     dtw_band_cuda(x, x, 3, torch.zeros(4, device=dev))
     assert _build.counts() == {"envelope": 1, "lb_enhanced": 0,
+                               "lb_enhanced_full": 0,
                                "lb_enhanced_pairwise": 0, "dtw_band": 2,
                                "dtw_band_slots": 0,
                                "dtw_band_block": 0, "dtw_band_stream": 0,
@@ -811,8 +812,10 @@ def test_lb_enhanced_whole_store_bit_equal(dev, Q, C, L, w, v, mask):
 
 def test_bands_tier_is_one_launch_per_call(dev):
     """The kernel route of the cross-block tiers launches K2 once over
-    the store, whatever ``candidate_chunk``; the matrix equals the CPU's
-    chunked plain route bit for bit (bands) or to rtol 1e-5 (full)."""
+    the store, whatever ``candidate_chunk`` (the bands form under its
+    count, the full form under ``lb_enhanced_full``); the matrix equals
+    the CPU's chunked plain route bit for bit (bands) or to rtol 1e-5
+    (full)."""
     from repro_torch.search import cascade
 
     ds = make_dataset(n_classes=4, n_train_per_class=300,
@@ -823,13 +826,15 @@ def test_bands_tier_is_one_launch_per_call(dev):
     cfg = CascadeConfig(w=w, v=4, candidate_chunk=64)
     q = torch.as_tensor(ds.x_test, dtype=torch.float32)
     live = torch.rand(idx.n, generator=torch.Generator().manual_seed(2)) > .3
-    for tier, exact in ((cascade.bands_prefilter, True),
-                        (cascade.enhanced_all_pairs, False)):
+    for tier, exact, count in (
+            (cascade.bands_prefilter, True, "lb_enhanced"),
+            (cascade.enhanced_all_pairs, False, "lb_enhanced_full")):
         for lv in (None, live):
             _build.reset_counts()
             got = tier(q.to(dev), idx, cfg,
                        live=None if lv is None else lv.to(dev))
-            assert _build.counts()["lb_enhanced"] == 1
+            assert _build.counts()[count] == 1
+            assert sum(_build.counts().values()) == 1
             want = tier(q, cpu_idx, cfg, live=lv)
             _check(got.cpu(), want, exact=exact)
 
@@ -950,3 +955,124 @@ def test_one_rank_nccl_step_equals_nn_search(dev, tmp_path, global_budget):
         assert rep.ok() and rep.values()["conserve_checked"] > 0
     finally:
         dist.destroy_process_group()
+
+
+# K2's full form: nb = 0 (pure Keogh), 1, 4, 8, 9 (the generic bands) and
+# L / 2 (an empty bridge at even L, one column at odd L); L not a multiple
+# of 4 or 32; Q < 8, C < 64; two or more 128 x 64 tiles, ragged
+K2_FULL_SWEEP = [
+    # Q, C, L, w, v
+    (5, 37, 33, 8, 0), (3, 70, 66, 1, 4), (130, 150, 100, 10, 4),
+    (9, 65, 64, 12, 8), (40, 129, 97, 20, 9), (7, 70, 16, 16, 8),
+    (6, 64, 17, 17, 9), (257, 200, 512, 51, 4), (4, 70, 17984, 179, 4),
+]
+
+
+def _odd_envelopes(u, lo):
+    """lo > u at a cell and along a run, +-inf bounds, and one NaN."""
+    u, lo = u.clone(), lo.clone()
+    C, L = u.shape
+    u[1, L // 2] = lo[1, L // 2] - 3.0
+    lo[2, 1:L - 1] = u[2, 1:L - 1] + 0.5
+    u[3, :] = float("inf")
+    lo[4, : L // 2] = float("-inf")
+    lo[C - 1, L // 3] = float("nan")
+    return u, lo
+
+
+@pytest.mark.parametrize("Q,C,L,w,v", K2_FULL_SWEEP)
+def test_lb_enhanced_full_form_sweep(dev, Q, C, L, w, v):
+    """The full form against the plain version to rtol 1e-5, atol 1e-6,
+    with and without a live mask (its first 64-candidate tile all dead),
+    and on envelopes with lo > u, +-inf
+    bounds and a NaN (NaN where the plain version has NaN); each call one
+    launch of ``lb_enhanced_full`` and none of the bands form."""
+    q, c = _rand(dev, 90, Q, L), _rand(dev, 91, C, L)
+    u, lo = ref.envelope_ref(c, w)
+    live = _rand(dev, 92, C) > -0.5
+    live[:64] = False
+    if C > 70:
+        live[70] = True
+    ou, olo = _odd_envelopes(u, lo)
+    for uu, ll, lv in ((u, lo, None), (u, lo, live), (ou, olo, None),
+                       (ou, olo, live)):
+        _build.reset_counts()
+        got = lb_enhanced_cuda(q, c, uu, ll, w, v, live=lv)
+        assert _build.counts()["lb_enhanced_full"] == 1
+        assert sum(_build.counts().values()) == 1
+        want = ref.lb_enhanced_ref(q, c, uu, ll, w, v, live=lv)
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        ok = ~torch.isnan(want)
+        _check(got[ok], want[ok], exact=False)
+        if lv is not None:
+            assert torch.isneginf(got[:, :64]).all()
+
+
+@pytest.mark.parametrize("Q,C,L,w,v", K2_FULL_SWEEP)
+def test_lb_enhanced_full_form_bands_bit_equal_to_the_bands_form(dev, Q, C,
+                                                                 L, w, v):
+    """With infinite envelopes every bridge term is 0, so the full form is
+    its bands alone: bit-equal to the bands form (and to the plain
+    bands), live mask and all; at nb = L / 2 with L even the bridge is
+    empty and the same holds on the real envelopes."""
+    q, c = _rand(dev, 93, Q, L), _rand(dev, 94, C, L)
+    inf = torch.full_like(c, float("inf"))
+    live = _rand(dev, 95, C) > 0.0
+    live[:64] = False
+    for lv in (None, live):
+        bands = lb_enhanced_cuda(q, c, None, None, w, v, live=lv,
+                                 bands_only=True)
+        _check(bands, ref.lb_enhanced_ref(q, c, None, None, w, v, live=lv,
+                                          bands_only=True), exact=True)
+        _check(lb_enhanced_cuda(q, c, inf, -inf, w, v, live=lv), bands,
+               exact=True)
+    u, lo = ref.envelope_ref(c, w)
+    if L % 2 == 0 and min(L // 2, w, v) == L // 2:
+        _check(lb_enhanced_cuda(q, c, u, lo, w, v),
+               lb_enhanced_cuda(q, c, u, lo, w, v, bands_only=True),
+               exact=True)
+
+
+@pytest.mark.parametrize("Q,C,L,w", LB_KEOGH_SWEEP)
+def test_lb_keogh_is_the_full_form_at_v0(dev, Q, C, L, w):
+    """K8 and K2's full form share one body (``kg_tile``): at V = 0 the
+    full form's output is K8's bit for bit, on real envelopes and on ones
+    with lo > u, +-inf bounds and a NaN."""
+    q, c = _rand(dev, 96, Q, L), _rand(dev, 97, C, L)
+    u, lo = ref.envelope_ref(c, w)
+    envs = [(u, lo)] + ([_odd_envelopes(u, lo)] if C >= 5 else [])
+    for uu, ll in envs:
+        k8 = lb_keogh_cuda(q, uu, ll)
+        full = lb_enhanced_cuda(q, c, uu, ll, w, 0)
+        assert torch.equal(torch.isnan(k8), torch.isnan(full))
+        ok = ~torch.isnan(k8)
+        assert torch.equal(k8[ok], full[ok])
+
+
+def test_unstaged_search_runs_the_full_form(dev):
+    """``CascadeConfig(staged=False)`` on the card: the dense plan's
+    ``enhanced_dense`` tier is one launch of the full form a search (no
+    launch of the bands form), and the neighbours, distances and ``n_dtw``
+    equal the same search on the CPU; ids and distances equal the staged
+    search's and the brute force's."""
+    ds = make_dataset(n_classes=4, n_train_per_class=80,
+                      n_test_per_class=8, length=96, seed=12)
+    w = 9
+    cfg = EngineConfig(cascade=CascadeConfig(w=w, v=4, staged=False),
+                       verify_chunk=8, k=1)
+    idx = build_index(ds.x_train, w, ds.y_train, device=dev)
+    cpu_idx = build_index(ds.x_train, w, ds.y_train, device="cpu")
+    _build.reset_counts()
+    res = nn_search(idx, ds.x_test, cfg)
+    assert _build.counts()["lb_enhanced_full"] == 1
+    assert _build.counts()["lb_enhanced"] == 0
+    want = nn_search(cpu_idx, ds.x_test, cfg)
+    assert torch.equal(res.idx.cpu(), want.idx)
+    assert torch.equal(res.n_dtw.cpu(), want.n_dtw)
+    assert torch.equal(res.dists.cpu(), want.dists)
+    staged = nn_search(idx, ds.x_test, EngineConfig(
+        cascade=CascadeConfig(w=w, v=4), verify_chunk=8, k=1))
+    assert torch.equal(staged.idx, res.idx)
+    assert torch.equal(staged.dists, res.dists)
+    bd, bi = brute_force(idx, ds.x_test, w, k=1)
+    assert torch.equal(bi, res.idx) and torch.equal(bd, res.dists)

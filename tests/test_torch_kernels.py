@@ -198,7 +198,8 @@ def test_pair_perm_round_trip():
 
 def test_launch_counters_reset_and_read():
     counts = _build.counts()
-    assert set(counts) == {"envelope", "lb_enhanced", "lb_enhanced_pairwise",
+    assert set(counts) == {"envelope", "lb_enhanced", "lb_enhanced_full",
+                           "lb_enhanced_pairwise",
                            "dtw_band", "dtw_band_slots", "dtw_band_block",
                            "dtw_band_stream", "dtw_band_stream_cluster",
                            "dtw_band_stream_scratch", "dtw_band_step",
