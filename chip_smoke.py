@@ -2,8 +2,9 @@
 """On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
     python3 chip_smoke.py            # one CUDA card, from the repo root
-    python3 chip_smoke.py --profile  # also profile each path's warm search
-                                     # and one request of each LM
+    python3 chip_smoke.py --profile  # also profile each path's warm search,
+                                     # one request of each LM and one warm
+                                     # train step of each stepped case
 
 1. prints the card (``nvidia-smi`` name and power limit) and builds the
    nine CUDA sources of K1-K10 from ``src/repro_torch/csrc`` (``nvcc``,
@@ -153,6 +154,22 @@
    1024} and at B = 4, S = 2048, C = 8192, N = 512, bit-equal; K8 also
    over tiles and chunks cut ragged, at L = 17984, on random walks and on
    envelopes with lo > u and +-inf bounds, with its issue floor;
+7b. the train path (after the LM kernels' checks), each case in the
+   train launch-count window from weights drawn on the card from
+   ``LM_SEED`` (f32 at rest), batches from ``TokenPipeline(seed=0)``,
+   AdamW at ``TRAIN_OPT``: train-gemma (gemma2-2b unmodified, bf16,
+   remat, B = 1, S = 8192, 3 steps; K9 exactly 2 x 26 a step, the
+   forward and remat's recompute), train-gemma-f32 (its width cut to 2
+   layers, f32, one step's gradients; K9's f32-arithmetic form 2 x 2) and
+   train-falcon (falcon-mamba-7b at full width cut to 16 layers, S =
+   2048, 3 steps; K10 2 x 16 a step); no other kernel may launch.  Step
+   1's loss and gradients on the kernel route are held against the plain
+   route (``TRAIN_BF16_TOL``, ``TRAIN_F32_LEAF_REL_L2``), every loss must
+   be finite; one ``train path:`` line a case with the losses, warm step
+   wall, tokens/s, peak memory, each leaf's relative L2 gradient error
+   and, for train-gemma, the model FLOPs (``train_flop_per_token``) and
+   their utilisation of 989 TFLOP/s (with ``--profile``, a profile of one
+   warm step of each stepped case);
 8b. after the LM phase and every kernel's check and timing (a short
    profiler session after the paper path saw no kernel on the H100
    machine), drives the paper path, the paper's own cell
@@ -187,9 +204,10 @@
    bit-equal (K3 and K2's full form within rtol 1e-5), and adds the
    paper and dist launch windows to the records;
 8d. runs each ``examples_torch/`` script once at its defaults on the
-   card, in a subprocess: it must exit 0 and print its exactness verdict
-   as ``True``; one ``examples:`` line;
-9. prints one ``{"kernels": [...]}`` line and, last, the device line
+   card (``train_lm.py`` for 20 steps), in a subprocess: it must exit 0
+   and print its verdict as ``True``; one ``examples:`` line;
+9. prints one ``{"kernels": [...]}`` line (K9's and K10's records with
+   ``train_path_launches``) and, last, the device line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line.  The script imports
@@ -201,6 +219,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import shutil
 import statistics
 import subprocess
@@ -275,7 +294,10 @@ PAPER_PROFILE_Q = 128
 # the examples_torch/ scripts and the exactness verdict each prints
 EXAMPLES = {"quickstart.py": "every bound below DTW",
             "ucr_classification.py": "exact vs brute force",
-            "distributed_search.py": "exact vs single-device brute force"}
+            "distributed_search.py": "exact vs single-device brute force",
+            "train_lm.py": "loss fell"}
+# arguments past the defaults: 20 AdamW steps of CFG_100M (batch 8 x 256)
+EXAMPLE_ARGS = {"train_lm.py": ["--steps", "20"]}
 # LM serve phase: the repo's gemma2-2b and falcon-mamba-7b configurations
 # at full width (all 26 and 64 layers), random weights drawn on the card
 # from LM_SEED, bf16 compute and KV cache.  The scoring request is the
@@ -297,6 +319,32 @@ LM_FALCON = dict(batch=4, prompt=2048, new=32)
 # model, about three times those readings.
 LM_F32_TOL = dict(rtol=1e-3, atol=1e-3)
 LM_BF16_MAX_ABS = {"gemma2-2b": 0.15, "falcon-mamba-7b": 0.5}
+# Train path: AdamW steps from weights drawn on the card from LM_SEED (f32
+# at rest), batches from the port's TokenPipeline(seed=0).  train-gemma is
+# gemma2-2b unmodified in bf16 with remat, S = 8192 (twice the window, as
+# the scoring prefill); train-gemma-f32 its full width cut to 2 layers (one
+# local, one global) in f32, one step's gradients; train-falcon
+# falcon-mamba-7b at full width, depth cut 64 -> 16 (AdamW's 16 bytes a
+# parameter for 64 layers, ~115 GB, exceed the card's 80 GB).
+TRAIN_CASES = (
+    dict(label="train-gemma", arch="gemma2-2b", n_layers=None,
+         dtype="bfloat16", batch=1, seq=8192, steps=3),
+    dict(label="train-gemma-f32", arch="gemma2-2b", n_layers=2,
+         dtype="float32", batch=1, seq=8192, steps=0),
+    dict(label="train-falcon", arch="falcon-mamba-7b", n_layers=16,
+         dtype="bfloat16", batch=1, seq=2048, steps=3),
+)
+TRAIN_OPT = dict(lr=3e-4, warmup=20)          # examples/train_lm.py's
+# the LM kernels' launch counts (one a form): the records that carry
+# ``train_path_launches``
+LM_KERNELS = ("flash_attention", "flash_attention_f32", "mamba_scan",
+              "mamba_scan_wide")
+# Route agreement at step 1 (kernel route vs attn_impl="chunked",
+# ssm_impl="scan"): in bf16 the loss within the JAX package's own
+# kernel-versus-chunked loss tolerance (tests/test_kernels.py) and the
+# global gradient norm within 2e-2; in f32 every leaf's relative L2 error.
+TRAIN_BF16_TOL = dict(loss_rtol=2e-3, grad_norm_rtol=2e-2)
+TRAIN_F32_LEAF_REL_L2 = 1e-3
 V = 4
 K = 1
 VERIFY_CHUNK = 32
@@ -1627,9 +1675,9 @@ def run_dist_sketch_path(torch, sk_ds, sk_index, sk_cfg):
 
 
 def run_examples(torch) -> None:
-    """Each ``examples_torch/`` script once at its defaults (on the card)
-    in a subprocess: it must exit 0 and print its exactness verdict as
-    ``True``.  Prints one ``examples:`` line."""
+    """Each ``examples_torch/`` script once at its defaults (on the card;
+    ``train_lm.py`` for 20 steps) in a subprocess: it must exit 0 and
+    print its verdict as ``True``.  Prints one ``examples:`` line."""
     import os
 
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -1637,7 +1685,8 @@ def run_examples(torch) -> None:
     for script, verdict in EXAMPLES.items():
         t0 = time.perf_counter()
         out = subprocess.run([sys.executable,
-                              str(ROOT / "examples_torch" / script)],
+                              str(ROOT / "examples_torch" / script),
+                              *EXAMPLE_ARGS.get(script, [])],
                              env=env, capture_output=True, text=True,
                              timeout=600)
         sec = time.perf_counter() - t0
@@ -1881,7 +1930,7 @@ def check_search(torch, ds, index, cfg, res):
           f"{t2 - t1:.3f} s)")
 
 
-def profile_call(torch, fn, label: str) -> None:
+def profile_call(torch, fn, label: str, top: int = 12) -> None:
     """``--profile``: one warm call of ``fn`` under ``torch.profiler``;
     prints the wall time, the summed device time of every kernel (the
     device's busy time: one stream, so launches do not overlap) and the
@@ -1912,7 +1961,7 @@ def profile_call(torch, fn, label: str) -> None:
     print(f"profile ({label}, profiled): " + json.dumps({
         "wall_s": wall, "device_busy_s": busy,
         "idle_share": 1.0 - busy / wall,
-        "top_kernels_name_count_ms": rows[:12],
+        "top_kernels_name_count_ms": rows[:top],
         "port_kernels_name_count_ms": [
             r for r in rows if any(k in r[0] for k in PORT_KERNELS)]}))
 
@@ -2227,6 +2276,200 @@ def run_lm_phase(torch, dev, profile: bool):
     gc.collect()
     torch.cuda.empty_cache()
     return windows, recs
+
+
+def train_flop_per_token(cfg, seq: int) -> float:
+    """Model FLOPs a token of one forward and backward, without remat's
+    recompute: 3 x (2 per weight the token's products read --
+    ``cfg.n_params()``, less the input embedding of an untied model -- and
+    4 D Hq per unmasked (query, key) pair of each attention layer, the
+    mean over a sequence of ``seq`` under its causal and window masks)."""
+    mats = cfg.n_params() - (0 if cfg.tie_embeddings
+                             else cfg.vocab * cfg.d_model)
+    pairs = sum(attn_pairs(seq, seq, cfg.causal, cfg.layer_spec(i).window)
+                for i in range(cfg.n_layers)
+                if cfg.layer_spec(i).mixer == "attn")
+    return 3.0 * (2.0 * mats + 4.0 * cfg.head_dim * cfg.n_heads * pairs
+                  / seq)
+
+
+def train_route_check(torch, label, cfg, dtype, params, batch, kname,
+                      n_layers):
+    """Step 1's loss and gradients on the kernel route against the plain
+    route on the same parameters and batch; the kernel route launches
+    ``kname`` twice a layer (the forward and remat's recompute).  Returns
+    the readings and the kernel route's counts."""
+    from repro_torch.kernels import _build
+    from repro_torch.models import LM
+    from repro_torch.train.trainer import value_and_grad
+    from repro_torch.tree import named_leaves, tree_leaves
+
+    kw = dict(compute_dtype=dtype)
+    plain = LM(cfg, **kw)
+    kern = LM(cfg, attn_impl="kernel", ssm_impl="kernel", **kw)
+    _build.reset_counts()
+    (lp, _), gp = value_and_grad(plain, params, batch)
+    check(sum(_build.counts().values()) == 0,
+          f"{label}: the plain route launched {_build.counts()}")
+    gp = tree_leaves(gp)
+    _build.reset_counts()
+    (lk, _), gk = value_and_grad(kern, params, batch)
+    torch.cuda.synchronize()
+    counts = _build.counts()
+    check(counts[kname] == 2 * n_layers, f"{label}: route check launched "
+          f"{kname} {counts[kname]} times, expected {2 * n_layers}")
+    gk = tree_leaves(gk)
+    rel = {}
+    for (name, _), a, b in zip(named_leaves(params), gk, gp):
+        check(bool(torch.isfinite(a).all()), f"{label}: non-finite grads")
+        rel[name] = (
+            torch.linalg.vector_norm(a - b)
+            / torch.linalg.vector_norm(b).clamp(min=1e-30)).item()
+    nk = torch.sqrt(sum(torch.sum(g * g) for g in gk)).item()
+    np_ = torch.sqrt(sum(torch.sum(g * g) for g in gp)).item()
+    out = {"loss_kernel": lk.item(), "loss_plain": lp.item(),
+           "loss_rel_err": abs(lk.item() - lp.item()) / abs(lp.item()),
+           "grad_norm_kernel": nk, "grad_norm_plain": np_,
+           "grad_norm_rel_err": abs(nk - np_) / np_,
+           "leaf_rel_l2_max": max(rel.values()),
+           "leaf_rel_l2": rel}
+    check(math.isfinite(out["loss_kernel"])
+          and math.isfinite(out["loss_plain"]),
+          f"{label}: a non-finite step-1 loss")
+    if dtype == torch.float32:
+        check(out["leaf_rel_l2_max"] <= TRAIN_F32_LEAF_REL_L2,
+              f"{label}: a leaf's gradient rel. L2 error "
+              f"{out['leaf_rel_l2_max']} > {TRAIN_F32_LEAF_REL_L2}")
+    else:
+        check(out["loss_rel_err"] <= TRAIN_BF16_TOL["loss_rtol"],
+              f"{label}: step-1 loss kernel {lk.item()} vs plain "
+              f"{lp.item()} beyond rtol {TRAIN_BF16_TOL['loss_rtol']}")
+        check(out["grad_norm_rel_err"] <= TRAIN_BF16_TOL["grad_norm_rtol"],
+              f"{label}: gradient norm kernel {nk} vs plain {np_} beyond "
+              f"rtol {TRAIN_BF16_TOL['grad_norm_rtol']}")
+    return out, counts
+
+
+def train_step_split(torch, model, state, batch, opt, label: str) -> None:
+    """``--profile``: one more warm step in its two halves, each
+    synchronised -- the loss and gradients, then the optimizer (the
+    global-norm clip and AdamW's passes); prints a ``train split`` line."""
+    from repro_torch.train import opt_update
+    from repro_torch.train.trainer import reference_view, value_and_grad
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, grads = value_and_grad(model, state.params, batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    opt_update(reference_view(model.cfg, state.params),
+               reference_view(model.cfg, grads), state.opt, opt, state.step)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    print(f"train split ({label}): " + json.dumps(
+        {"value_and_grad_s": t1 - t0, "opt_update_s": t2 - t1}))
+
+
+def run_train_path(torch, dev, profile: bool):
+    """The train path: each case of ``TRAIN_CASES`` from seeded weights on
+    the card -- the step-1 route check (``train_route_check``), then its
+    AdamW steps, each synchronised, in the train launch-count window,
+    where K9 (train-gemma) or K10 (train-falcon) must launch exactly twice
+    a layer a step and nothing else may launch.  Prints one ``train
+    path:`` line a case; returns the window's counts."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import _build
+    from repro_torch.models import LM
+    from repro_torch.train import OptConfig, init_state, make_train_step
+    from repro_torch.tree import tree_leaves
+
+    window = dict.fromkeys(_build.counts(), 0)
+    for case in TRAIN_CASES:
+        cfg = ARCHS[case["arch"]]
+        if case["n_layers"]:
+            cfg = dataclasses.replace(cfg, n_layers=case["n_layers"])
+        dtype = getattr(torch, case["dtype"])
+        kname = ("mamba_scan" if cfg.family == "ssm" else
+                 "flash_attention" if dtype == torch.bfloat16 else
+                 "flash_attention_f32")
+        nl = cfg.n_layers
+        gen = torch.Generator(device=dev).manual_seed(LM_SEED)
+        opt = OptConfig(**TRAIN_OPT)
+        model = LM(cfg, compute_dtype=dtype, attn_impl="kernel",
+                   ssm_impl="kernel")
+        t0 = time.perf_counter()
+        if case["steps"]:
+            state = init_state(model, gen, opt)
+            params = state.params
+        else:
+            params = model.init(gen, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        pipe = TokenPipeline(cfg.vocab, case["batch"], case["seq"], seed=0)
+        batches = [pipe.next_batch() for _ in range(max(case["steps"], 1))]
+        line = {"model": cfg.name, "n_layers": nl, "compute": case["dtype"],
+                "B": case["batch"], "S": case["seq"],
+                "params": sum(t.numel() for t in tree_leaves(params)),
+                "init_s": init_s}
+        route, rcounts = train_route_check(
+            torch, case["label"], cfg, dtype, params, batches[0], kname, nl)
+        if not case["steps"]:
+            # train-gemma-f32: its one step's gradients are the window's
+            for k, v in rcounts.items():
+                window[k] += v
+            line.update(route=route, launches={k: v for k, v in
+                                               rcounts.items() if v})
+            print(f"train path {case['label']}: " + json.dumps(line))
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+            continue
+        step = make_train_step(model, opt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_counts()
+        losses, walls = [], []
+        for b in batches:
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            loss = m["loss"].item()
+            walls.append(time.perf_counter() - t0)
+            losses.append(loss)
+        counts = _build.counts()
+        peak = torch.cuda.max_memory_allocated()
+        want = {k: 0 for k in counts}
+        want[kname] = 2 * nl * case["steps"]
+        check(counts == want, f"{case['label']}: launches "
+              f"{ {k: v for k, v in counts.items() if v} }, expected "
+              f"{kname} = 2 x {nl} layers x {case['steps']} steps only")
+        check(all(map(math.isfinite, losses)),
+              f"{case['label']}: a non-finite loss {losses}")
+        for k, v in counts.items():
+            window[k] += v
+        warm = statistics.mean(walls[1:])
+        tokens = case["batch"] * case["seq"]
+        line.update(
+            losses=losses, step_walls_s=walls, warm_step_s=warm,
+            tokens_per_s=tokens / warm, max_memory_allocated=peak,
+            launches={k: v for k, v in counts.items() if v}, route=route,
+            opt=TRAIN_OPT)
+        if cfg.family != "ssm":
+            flop = train_flop_per_token(cfg, case["seq"]) * tokens
+            line.update(model_flop_per_step=flop,
+                        mfu_bf16=flop / warm / PEAK_BF16,
+                        bound_s=flop / PEAK_BF16,
+                        bound_with_remat_s=flop * 4 / 3 / PEAK_BF16)
+        print(f"train path {case['label']}: " + json.dumps(line))
+        if profile:
+            profile_call(torch, lambda: step(state, batches[-1])[1][
+                "loss"].item(), f"{case['label']} train step", top=30)
+            train_step_split(torch, model, state, batches[-1], opt,
+                             case["label"])
+        del state, params, step, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return window
 
 
 def k9_tol(x) -> dict:
@@ -3675,6 +3918,15 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         phase("lm phase")
+        tr_launches = run_train_path(torch, dev, profile)
+        for rec in kernels:
+            if rec["name"] in LM_KERNELS:
+                rec["train_path_launches"] = tr_launches[rec["name"]]
+                rec["launches"] += tr_launches[rec["name"]]
+        check(sum(tr_launches[k] for k in tr_launches
+                  if k not in LM_KERNELS) == 0,
+              f"train path: a search kernel launched: {tr_launches}")
+        phase("train path")
         # the distributed paths come after every device_ms measurement:
         # a short profiler session after the paper path saw no kernel
         # (four calls on the H100 machine, with the sessions primed and

@@ -38,9 +38,10 @@ next multiple of 8, with the true ``D ** -0.5`` scale, and the output is
 cut back, and storage that is not 16-byte aligned runs on an aligned copy
 (the f32-arithmetic form reads unaligned storage element by element).
 
-Forward only: inputs that require a gradient are refused (training,
-ROADMAP Queue 1 item 13(b), is to recompute through the plain version,
-as ``repro.kernels.ops._fa_bwd`` does).
+Forward only: inputs that require a gradient are refused.  Training
+reaches the kernel through ``kernels.ops.flash_attention_op``'s autograd
+Function, which hands it detached inputs and recomputes the backward
+through the plain version, as ``repro.kernels.ops._fa_bwd`` does.
 """
 
 from __future__ import annotations

@@ -16,9 +16,11 @@ memory by ``cp.async``, the next chunk's while this one runs.  Past
 ``mamba_scan_wide``): the same kernel at G = 32 in one launch of
 ``ceil(N / 256)`` passes over the sequence, 256 states a pass, each
 step's sum carried from pass to pass through y, so it stays bit-equal for
-any N.  Forward only: inputs that require a gradient are refused
-(training, ROADMAP Queue 1 item 13(b), is to recompute through the plain
-version, as ``repro.kernels.ops._mamba_bwd`` does).
+any N.  Forward only: inputs that require a gradient are refused.
+Training reaches the kernel through ``kernels.ops.mamba_scan_op``'s
+autograd Function, which hands it detached inputs and recomputes the
+backward through the chunked scan, as ``repro.kernels.ops._mamba_bwd``
+does.
 """
 
 from __future__ import annotations

@@ -134,25 +134,96 @@ def dtw_band_op(a: Tensor, b: Tensor, w: int | None = None, cutoff=None,
     return out if hook is None else hook(out)
 
 
-def flash_attention_op(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
-                       window: int | None = None,
-                       score_cap: float | None = None) -> Tensor:
-    """Fused self-attention forward, q ``(B, Sq, Hq, D)`` x k, v ``(B,
-    Skv, Hkv, D)`` ``-> (B, Sq, Hq, D)``, positions implicit (K9).
-    Forward only (training is ROADMAP Queue 1 item 13(b)): on the card,
-    inputs that require a gradient raise."""
-    OP_CALLS["flash_attention"] += 1
+def _wants_grad(*xs: Tensor) -> bool:
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K9 under autograd: the forward is the kernel (the plain version on
+    a CPU tensor) on detached inputs; the backward recomputes through the
+    plain version, ``ref.flash_attention_ref`` with implicit positions and
+    ``kv_chunk`` 1024, as the reference's ``custom_vjp``
+    (``repro.kernels.ops._fa_bwd``) does through its chunked attention."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, score_cap):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (causal, window, score_cap)
+        return _flash_forward(q.detach(), k.detach(), v.detach(),
+                              *ctx.args)
+
+    @staticmethod
+    def backward(ctx, ct):
+        xs = [x.detach().requires_grad_(need) for x, need in
+              zip(ctx.saved_tensors, ctx.needs_input_grad[:3])]
+        with torch.enable_grad():
+            out = ref.flash_attention_ref(*xs, *ctx.args, kv_chunk=1024)
+            want = [x for x in xs if x.requires_grad]
+            got = iter(torch.autograd.grad(out, want, ct))
+        return (*(next(got) if x.requires_grad else None for x in xs),
+                None, None, None)
+
+
+def _flash_forward(q, k, v, causal, window, score_cap):
     if _on_card(q):
         return flash_attention_cuda(q, k, v, causal, window, score_cap)
     return ref.flash_attention_ref(q, k, v, causal, window, score_cap)
 
 
-def mamba_scan_op(delta: Tensor, u: Tensor, A: Tensor, Bmat: Tensor,
-                  Cmat: Tensor, h0: Tensor) -> tuple[Tensor, Tensor]:
-    """Fused selective scan ``-> (y (B, S, C), h_final (B, C, N))`` (K10).
-    Forward only (training is ROADMAP Queue 1 item 13(b)): on the card,
-    inputs that require a gradient raise."""
-    OP_CALLS["mamba_scan"] += 1
+def flash_attention_op(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
+                       window: int | None = None,
+                       score_cap: float | None = None) -> Tensor:
+    """Fused self-attention forward, q ``(B, Sq, Hq, D)`` x k, v ``(B,
+    Skv, Hkv, D)`` ``-> (B, Sq, Hq, D)``, positions implicit (K9).  When
+    grad mode is on and an input requires a gradient, it runs through
+    ``_FlashAttention`` (the kernel forward, the plain version's
+    backward); otherwise it calls the kernel directly."""
+    OP_CALLS["flash_attention"] += 1
+    if _wants_grad(q, k, v):
+        return _FlashAttention.apply(q, k, v, causal, window, score_cap)
+    return _flash_forward(q, k, v, causal, window, score_cap)
+
+
+class _MambaScan(torch.autograd.Function):
+    """K10 under autograd: the forward is the kernel (the plain version on
+    a CPU tensor) on detached inputs; the backward recomputes through
+    ``models.mamba._chunked_selective_scan`` with chunks of 256, as the
+    reference's ``custom_vjp`` (``repro.kernels.ops._mamba_bwd``) does."""
+
+    @staticmethod
+    def forward(ctx, delta, u, A, Bmat, Cmat, h0):
+        ctx.save_for_backward(delta, u, A, Bmat, Cmat, h0)
+        return _mamba_forward(*(x.detach() for x in
+                                (delta, u, A, Bmat, Cmat, h0)))
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        # imported here: models/mamba.py imports this module
+        from repro_torch.models.mamba import _chunked_selective_scan
+
+        xs = [x.detach().requires_grad_(need) for x, need in
+              zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            y, h = _chunked_selective_scan(*xs, chunk=256)
+            want = [x for x in xs if x.requires_grad]
+            got = iter(torch.autograd.grad((y, h), want, (gy, gh)))
+        return tuple(next(got) if x.requires_grad else None for x in xs)
+
+
+def _mamba_forward(delta, u, A, Bmat, Cmat, h0):
     if _on_card(delta):
         return mamba_scan_cuda(delta, u, A, Bmat, Cmat, h0)
     return ref.mamba_scan_ref(delta, u, A, Bmat, Cmat, h0)
+
+
+def mamba_scan_op(delta: Tensor, u: Tensor, A: Tensor, Bmat: Tensor,
+                  Cmat: Tensor, h0: Tensor) -> tuple[Tensor, Tensor]:
+    """Fused selective scan ``-> (y (B, S, C), h_final (B, C, N))`` (K10).
+    When grad mode is on and an input requires a gradient, it runs
+    through ``_MambaScan`` (the kernel forward, the chunked scan's
+    backward); otherwise it calls the kernel directly."""
+    OP_CALLS["mamba_scan"] += 1
+    xs = (delta, u, A, Bmat, Cmat, h0)
+    if _wants_grad(*xs):
+        return _MambaScan.apply(*xs)
+    return _mamba_forward(*xs)

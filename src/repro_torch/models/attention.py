@@ -7,7 +7,7 @@ without a cache, and a prefill that fills the whole cache (``S ==
 Smax``), where attention over the cache is self-attention.  Every other
 call (a prefill into a longer cache, every decode step) runs the plain
 online-softmax attention over the cache with the unwritten slots masked.
-M-RoPE is not ported yet (ROADMAP Queue 1 item 13(d)).
+M-RoPE is not ported yet (ROADMAP Queue 1 item 3).
 """
 
 from __future__ import annotations

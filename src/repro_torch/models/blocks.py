@@ -6,7 +6,7 @@ dense MLP + residual.  Routing kept from the JAX package
 (``blocks.py:83,91``): a call with ``S == 1`` (every decode step) runs
 the plain ``"chunked"`` attention and ``"scan"`` paths whatever the
 model's impl, so no kernel runs in a decode step.  MoE layers are not
-ported yet (ROADMAP Queue 1 item 13(c)); ``LM`` refuses them up front.
+ported yet (ROADMAP Queue 1 item 2); ``LM`` refuses them up front.
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ def layer_init(gen: torch.Generator, device, cfg: ArchConfig,
     if spec.moe:
         raise NotImplementedError(
             f"{cfg.name}: MoE layers are not ported yet (ROADMAP Queue 1 "
-            "item 13(c))")
+            "item 2)")
     if cfg.d_ff > 0:
         p["norm2"] = torch.zeros(cfg.d_model, device=device)
         p["mlp"] = mlp_init(gen, device, cfg.d_model, cfg.d_ff, cfg.act)

@@ -6,6 +6,8 @@ along a leading ``n_repeat`` axis (``params["scan"][pos]``) after the
 ``first_dense + r * len(period) + pos`` is ``scan[pos]`` at index ``r``.
 The trees arrive as numpy (``jax.tree.map(np.asarray, tree)``), so this
 module imports nothing of JAX; bfloat16 arrays come through float32.
+``train_state_from_numpy`` carries a whole JAX ``TrainState`` across, so
+one step can run in JAX and the next in the port.
 """
 
 from __future__ import annotations
@@ -63,3 +65,20 @@ def lm_caches_from_numpy(cfg: ArchConfig, caches: dict[str, Any],
     """The JAX ``LM`` caches (as numpy) -> the port's per-layer list."""
     return _to_torch(unstack_layers(cfg, caches["prelude"], caches["scan"]),
                      resolve_device(device))
+
+
+def train_state_from_numpy(cfg: ArchConfig, state: Any, device=None):
+    """A JAX ``TrainState`` (as numpy: ``jax.tree.map(np.asarray,
+    state)``) -> the port's ``TrainState`` on ``device`` (default CUDA):
+    the parameters unstacked into per-layer dicts, the optimizer state
+    (AdamW's ``mu`` / ``nu``, Adafactor's ``vr`` / ``vc`` / ``v``) and the
+    compression error kept in the reference's layout, which is the port's
+    layout for them (``train.trainer.reference_view``), and the step."""
+    from repro_torch.train.trainer import TrainState
+
+    dev = resolve_device(device)
+    return TrainState(
+        step=int(np.asarray(state.step)),
+        params=lm_params_from_numpy(cfg, state.params, dev),
+        opt=_to_torch(state.opt, dev),
+        err=None if state.err is None else _to_torch(state.err, dev))

@@ -10,8 +10,8 @@ Initialisers draw from an explicit ``torch.Generator`` with the JAX
 initialisers' distributions (``lecun_normal`` is a normal truncated to
 two standard deviations, rescaled to unit variance over ``fan_in``);
 the numbers differ from JAX's, so the tests carry JAX's parameters over
-with ``models.convert``.  ``apply_mrope`` and ``chunked_cross_entropy``
-are not ported yet (ROADMAP Queue 1 items 13(d) and 13(b)).
+with ``models.convert``.  ``apply_mrope`` is not ported yet (ROADMAP
+Queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 Tensor = torch.Tensor
 
@@ -133,3 +134,49 @@ def embed_init(gen: torch.Generator, device, vocab: int,
 
 def embed_lookup(table: Tensor, ids: Tensor, dtype) -> Tensor:
     return table[ids.long()].to(dtype)
+
+
+def chunked_cross_entropy(x: Tensor, w_head: Tensor, labels: Tensor, *,
+                          chunk: int = 512,
+                          final_softcap_val: float | None = None,
+                          mask: Tensor | None = None) -> Tensor:
+    """Mean next-token cross-entropy without materialising ``(B, S, V)``
+    f32 logits: x ``(B, S, D)``, w_head ``(D, V)``, labels ``(B, S)``
+    (masked positions where ``mask`` is false), a 0-d f32 tensor.
+
+    Loops over sequence chunks (S padded to a multiple of ``chunk``, the
+    padding masked), so peak memory is ``(B, chunk, V)``; under autograd
+    each chunk runs in ``torch.utils.checkpoint``, which recomputes its
+    logits in backward -- otherwise every chunk's ``(B, chunk, V)`` f32
+    residuals would stay alive for the backward and the chunking would
+    save nothing for training.
+    """
+    B, S, _ = x.shape
+    chunk = min(chunk, S)
+    pad = (-S) % chunk
+    if mask is None:
+        mask = torch.ones((B, S), dtype=torch.bool, device=x.device)
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad))
+        mask = F.pad(mask, (0, pad))
+
+    def body(xi: Tensor, li: Tensor, mi: Tensor, w: Tensor) -> Tensor:
+        logits = (xi @ w.to(xi.dtype)).float()
+        logits = softcap(logits, final_softcap_val)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, li[..., None].long())[..., 0]
+        return torch.sum(torch.where(mi, lse - gold, 0.0))
+
+    grad = torch.is_grad_enabled() and (x.requires_grad
+                                        or w_head.requires_grad)
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for s0 in range(0, S + pad, chunk):
+        args = (x[:, s0:s0 + chunk], labels[:, s0:s0 + chunk],
+                mask[:, s0:s0 + chunk], w_head)
+        nll = (checkpoint(body, *args, use_reentrant=False) if grad
+               else body(*args))
+        tot = tot + nll
+        cnt = cnt + torch.sum(args[2])
+    return tot / torch.clamp(cnt, min=1.0)

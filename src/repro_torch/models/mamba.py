@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import lecun_normal, normal
@@ -69,28 +70,39 @@ def _prefix_scan(a: Tensor, b: Tensor) -> tuple[Tensor, Tensor]:
     return a, b
 
 
+def _scan_chunk(d: Tensor, uu: Tensor, A: Tensor, bm: Tensor, cm: Tensor,
+                h: Tensor) -> tuple[Tensor, Tensor]:
+    """One chunk of the recurrence from state h: (y (B, T, C), last h)."""
+    a = torch.exp(d[..., None] * A)                        # (B, T, C, N)
+    b = (d * uu)[..., None] * bm[:, :, None, :]
+    a_pre, b_pre = _prefix_scan(a, b)
+    h_t = a_pre * h[:, None] + b_pre                       # (B, T, C, N)
+    # a copy, not a view: the state outlives the chunk in the cache, and
+    # a view would keep the whole (B, T, C, N) chunk alive
+    return torch.einsum("btcn,btn->btc", h_t, cm), h_t[:, -1].clone()
+
+
 def _chunked_selective_scan(delta: Tensor, u: Tensor, A: Tensor,
                             Bmat: Tensor, Cmat: Tensor, h0: Tensor,
                             chunk: int) -> tuple[Tensor, Tensor]:
     """Linear recurrence ``h_t = exp(delta_t A) h_{t-1} + delta_t u_t B_t``
     over chunks of ``chunk`` steps; the ``(B, chunk, C, N)`` discretised
-    tensors exist for one chunk at a time.  Returns (y (B, S, C) f32
-    with ``y_t = <h_t, C_t>``, final state h)."""
+    tensors exist for one chunk at a time.  Under autograd each chunk runs
+    in ``torch.utils.checkpoint``, as the reference checkpoints its chunk
+    body, so its backward too holds one chunk's tensors at a time.
+    Returns (y (B, S, C) f32 with ``y_t = <h_t, C_t>``, final state h)."""
     S = delta.shape[1]
     chunk = max(1, min(chunk, S))
+    grad = torch.is_grad_enabled() and any(
+        x.requires_grad for x in (delta, u, A, Bmat, Cmat, h0))
     h = h0
     ys = []
     for s0 in range(0, S, chunk):
-        d = delta[:, s0:s0 + chunk]
-        a = torch.exp(d[..., None] * A)                    # (B, T, C, N)
-        b = (d * u[:, s0:s0 + chunk])[..., None] * Bmat[:, s0:s0 + chunk,
-                                                        None, :]
-        a_pre, b_pre = _prefix_scan(a, b)
-        h_t = a_pre * h[:, None] + b_pre                   # (B, T, C, N)
-        ys.append(torch.einsum("btcn,btn->btc", h_t, Cmat[:, s0:s0 + chunk]))
-        # a copy, not a view: the state outlives the chunk in the cache,
-        # and a view would keep the whole (B, T, C, N) chunk alive
-        h = h_t[:, -1].clone()
+        args = (delta[:, s0:s0 + chunk], u[:, s0:s0 + chunk], A,
+                Bmat[:, s0:s0 + chunk], Cmat[:, s0:s0 + chunk], h)
+        y, h = (checkpoint(_scan_chunk, *args, use_reentrant=False) if grad
+                else _scan_chunk(*args))
+        ys.append(y)
     if not ys:
         return delta.new_zeros(delta.shape), h0
     return torch.cat(ys, dim=1), h

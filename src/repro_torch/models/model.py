@@ -1,19 +1,22 @@
 """Top-level language/sequence model: a stack of blocks + heads (port of
-``repro.models.model``, the serving part).
+``repro.models.model``).
 
 ``LM`` keeps the JAX package's interface: parameters are an explicit
-nested dict (f32 at rest) passed to ``prefill`` and ``decode_step``, and
-``compute_params`` makes the compute-dtype copy of every >=2-D parameter.
-The stack is a plain loop over layers (``params["layers"][i]``, one dict
-per layer; ``models.convert`` unstacks the JAX package's scanned
-layout into it) with no scan, remat or mesh.  ``attn_impl="kernel"`` and
-``ssm_impl="kernel"`` (JAX's ``"pallas"``) route through the K9 and K10
-ops; ``"chunked"`` and ``"scan"`` run the plain versions.
+nested dict (f32 at rest) passed to ``loss_fn``, ``prefill`` and
+``decode_step``, and ``compute_params`` makes the compute-dtype copy of
+every >=2-D parameter.  The stack is a plain loop over layers
+(``params["layers"][i]``, one dict per layer; ``models.convert``
+unstacks the JAX package's scanned layout into it) with no scan or mesh;
+with ``remat`` (the default, as in JAX) each layer of a forward without
+caches runs under ``torch.utils.checkpoint`` when autograd records it, so
+the backward recomputes it instead of keeping its activations.
+``attn_impl="kernel"`` and ``ssm_impl="kernel"`` (JAX's ``"pallas"``)
+route through the K9 and K10 ops, differentiable through their autograd
+Functions; ``"chunked"`` and ``"scan"`` run the plain versions.
 
 Configurations with layers this slice does not have raise
 ``NotImplementedError`` naming the ROADMAP item (MoE, M-RoPE/vision
-prefix, audio ``frames`` inputs); nothing falls back.  Training
-(``loss_fn``) is a later slice.
+prefix, audio ``frames`` inputs); nothing falls back.
 """
 
 from __future__ import annotations
@@ -22,11 +25,13 @@ from typing import Any
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.blocks import init_layer_cache, layer_apply, layer_init
 from repro_torch.models.layers import (
+    chunked_cross_entropy,
     embed_init,
     embed_lookup,
     lecun_normal,
@@ -42,15 +47,15 @@ def check_supported(cfg: ArchConfig) -> None:
     if any(cfg.layer_spec(i).moe for i in range(cfg.n_layers)):
         raise NotImplementedError(
             f"{cfg.name}: MoE layers are not ported yet (ROADMAP Queue 1 "
-            "item 13(c))")
+            "item 2)")
     if cfg.mrope_sections is not None or cfg.vision_prefix:
         raise NotImplementedError(
             f"{cfg.name}: M-RoPE and vision-prefix inputs are not ported "
-            "yet (ROADMAP Queue 1 item 13(d))")
+            "yet (ROADMAP Queue 1 item 3)")
     if not cfg.embed_inputs:
         raise NotImplementedError(
             f"{cfg.name}: audio frame inputs are not ported yet (ROADMAP "
-            "Queue 1 item 13(d))")
+            "Queue 1 item 3)")
 
 
 def _cast_tree(tree: Any, dtype: torch.dtype) -> Any:
@@ -72,7 +77,8 @@ class LM(nn.Module):
     def __init__(self, cfg: ArchConfig, *, compute_dtype=torch.bfloat16,
                  cache_dtype=torch.bfloat16, kv_chunk: int = 1024,
                  mamba_chunk: int = 256, attn_impl: str = "chunked",
-                 ssm_impl: str = "scan"):
+                 ssm_impl: str = "scan", remat: bool = True,
+                 ce_chunk: int = 512):
         super().__init__()
         check_supported(cfg)
         if attn_impl not in ("chunked", "kernel"):
@@ -87,6 +93,8 @@ class LM(nn.Module):
         self.mamba_chunk = mamba_chunk
         self.attn_impl = attn_impl
         self.ssm_impl = ssm_impl
+        self.remat = remat
+        self.ce_chunk = ce_chunk
 
     def compute_params(self, params: dict[str, Any]) -> dict[str, Any]:
         """The compute-dtype copy of every >=2-D f32 parameter (1-D norm
@@ -121,13 +129,17 @@ class LM(nn.Module):
                  caches: list | None = None,
                  cache_index: int | None = None) -> tuple[Tensor, list | None]:
         cfg = self.cfg
+        remat = self.remat and caches is None and torch.is_grad_enabled()
         for i, p in enumerate(params["layers"]):
-            x, _ = layer_apply(
-                cfg, cfg.layer_spec(i), p, x, positions,
-                cache=caches[i] if caches is not None else None,
-                cache_index=cache_index, kv_chunk=self.kv_chunk,
-                mamba_chunk=self.mamba_chunk, ssm_impl=self.ssm_impl,
-                attn_impl=self.attn_impl)
+            def apply(x, p, i=i):
+                return layer_apply(
+                    cfg, cfg.layer_spec(i), p, x, positions,
+                    cache=caches[i] if caches is not None else None,
+                    cache_index=cache_index, kv_chunk=self.kv_chunk,
+                    mamba_chunk=self.mamba_chunk, ssm_impl=self.ssm_impl,
+                    attn_impl=self.attn_impl)[0]
+            x = (checkpoint(apply, x, p, use_reentrant=False) if remat
+                 else apply(x, p))
         return x, caches
 
     def embed(self, params: dict[str, Any], batch: dict[str, Any]) -> Tensor:
@@ -146,6 +158,27 @@ class LM(nn.Module):
         return softcap(logits[:, 0, :], self.cfg.final_softcap)
 
     # ------------------------------------------------------------------
+    def loss_fn(self, params: dict[str, Any],
+                batch: dict[str, Any]) -> tuple[Tensor, dict[str, Tensor]]:
+        """Mean next-token cross-entropy of ``batch["tokens"]`` against
+        ``batch["labels"]`` (both ``(B, S)``; labels below 0 are masked),
+        with gradients: ``(loss, {"ce", "aux"})``.  ``aux`` is 0 (the
+        port has no MoE), so the loss is the CE."""
+        cfg = self.cfg
+        params = self.compute_params(params)
+        x = self.embed(params, batch)
+        B, S, _ = x.shape
+        positions = torch.arange(S, device=x.device).expand(B, S)
+        hidden, _ = self.backbone(params, x, positions)
+        hidden = rms_norm(hidden, params["final_norm"], cfg.norm_eps)
+        labels = torch.as_tensor(batch["labels"], device=x.device)
+        ce = chunked_cross_entropy(
+            hidden, self.head(params), torch.clamp(labels, min=0),
+            chunk=self.ce_chunk, final_softcap_val=cfg.final_softcap,
+            mask=labels >= 0)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return ce + 0.01 * aux, {"ce": ce, "aux": aux}
+
     @torch.no_grad()
     def prefill(self, params: dict[str, Any], batch: dict[str, Any],
                 max_len: int | None = None) -> tuple[Tensor, list, int]:

@@ -2,7 +2,8 @@
 small size with ``--device cpu`` and report exact results; without the
 flag they ask for the card, which this machine lacks, and fail.
 
-``distributed_search.py`` spawns its 8-rank gloo world, a (4, 2) mesh.
+``distributed_search.py`` spawns its 8-rank gloo world, a (4, 2) mesh;
+``train_lm.py --tiny`` takes 20 AdamW steps of a 2-layer model.
 Each run has a deadline, so a hung world fails its test.
 """
 
@@ -24,6 +25,7 @@ CASES = {
     "distributed_search.py": (
         ["--per-class", "16", "--n-test", "4", "--length", "48"],
         "exact vs single-device brute force: True"),
+    "train_lm.py": (["--tiny"], "loss fell: True"),
 }
 
 

@@ -1076,3 +1076,127 @@ def test_unstaged_search_runs_the_full_form(dev):
     assert torch.equal(staged.dists, res.dists)
     bd, bi = brute_force(idx, ds.x_test, w, k=1)
     assert torch.equal(bi, res.idx) and torch.equal(bd, res.dists)
+
+
+# ---- training: K9 and K10 under autograd on the card ----------------------
+
+def _grads(fn, xs):
+    xs = [x.detach().requires_grad_() for x in xs]
+    out = fn(*xs)
+    out = out if isinstance(out, tuple) else (out,)
+    loss = sum(torch.sum(o.float() ** 2) for o in out)
+    return torch.autograd.grad(loss, xs)
+
+
+@pytest.mark.parametrize("dtype,kname", [(torch.bfloat16, "flash_attention"),
+                                         (torch.float32,
+                                          "flash_attention_f32")])
+def test_flash_attention_function_grads_on_the_card(dev, dtype, kname):
+    """The op under a gradient launches K9 once (its autograd Function's
+    forward) and recomputes the backward through the plain version: its
+    gradients against autograd straight through the plain version on the
+    card, at K9's forward tolerances by type."""
+    xs = [_rand(dev, 60 + i, 2, 96, H, 128).to(dtype)
+          for i, H in enumerate((8, 4, 4))]
+    args = (True, 32, 50.0)
+    _build.reset_counts()
+    got = _grads(lambda q, k, v: ops.flash_attention_op(q, k, v, *args), xs)
+    assert _build.counts()[kname] == 1
+    want = _grads(lambda q, k, v: ref.flash_attention_ref(
+        q, k, v, *args, kv_chunk=1024), xs)
+    tol = (dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32
+           else dict(rtol=2e-2, atol=2e-2))
+    for g, w in zip(got, want):
+        assert g.dtype == dtype
+        torch.testing.assert_close(g.float(), w.float(), **tol)
+
+
+def test_mamba_scan_function_grads_on_the_card(dev):
+    """K10 launches once under a gradient; the backward recomputes
+    through the chunked scan: against autograd through the chunked scan
+    on the card (rtol 1e-3, atol 1e-4, ``tests/test_kernels.py``'s)."""
+    from repro_torch.models.mamba import _chunked_selective_scan
+
+    args = _mamba_args(dev, 2, 300, 70, 16)
+    _build.reset_counts()
+    got = _grads(ops.mamba_scan_op, args)
+    assert _build.counts()["mamba_scan"] == 1
+    want = _grads(lambda *a: _chunked_selective_scan(*a, chunk=256), args)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("name,kernel", [("gemma2-2b", "flash_attention_f32"),
+                                         ("falcon-mamba-7b", "mamba_scan")])
+def test_train_step_on_the_card_equals_the_cpu(dev, name, kernel):
+    """A reduced model (f32 compute, remat) on the card through K9 / K10
+    against the same model on the CPU through the plain versions: step
+    1's loss and gradients (rtol 1e-4, atol 1e-6), then two AdamW steps'
+    losses (rtol 1e-4) and parameters (rtol 1e-4, atol 1e-5 on all but
+    at most one element in a thousand of a leaf: Adam's first update is
+    about g / |g|, so a gradient element near zero, whose relative
+    rounding on the two devices differs most, can move by up to ``lr``
+    on one and less on the other); the kernel launched twice a layer a
+    step (the forward and remat's recompute)."""
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import LM
+    from repro_torch.train import OptConfig, init_state, make_train_step
+    from repro_torch.train.trainer import value_and_grad
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = reduced(ARCHS[name])
+    model = LM(cfg, compute_dtype=torch.float32, attn_impl="kernel",
+               ssm_impl="kernel")
+    opt = OptConfig(lr=1e-3, warmup=2)
+    step = make_train_step(model, opt)
+    batches = [TokenPipeline(cfg.vocab, 2, 24, seed=0).next_batch()
+               for _ in range(2)]
+    cpu = init_state(model, torch.Generator().manual_seed(5), opt)
+    card = tree_map(lambda t: t.to(dev) if isinstance(t, torch.Tensor)
+                    else t, cpu)
+    (lc, _), gc = value_and_grad(model, cpu.params, batches[0])
+    (lk, _), gk = value_and_grad(model, card.params, batches[0])
+    torch.testing.assert_close(lk.cpu(), lc, rtol=1e-4, atol=0)
+    for g, w in zip(tree_leaves(gk), tree_leaves(gc)):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-6)
+    losses = {"cpu": [], "card": []}
+    for b in batches:
+        cpu, m = step(cpu, b)
+        losses["cpu"].append(m["loss"].item())
+        _build.reset_counts()
+        card, m = step(card, b)
+        losses["card"].append(m["loss"].item())
+        assert _build.counts()[kernel] == 2 * cfg.n_layers
+    np.testing.assert_allclose(losses["card"], losses["cpu"], rtol=1e-4)
+    for g, w in zip(tree_leaves(card.params), tree_leaves(cpu.params)):
+        off = ~torch.isclose(g.cpu(), w, rtol=1e-4, atol=1e-5)
+        assert int(off.sum()) <= max(1, w.numel() // 1000)
+
+
+@pytest.mark.parametrize("name,kernel", [("gemma2-2b", "flash_attention"),
+                                         ("falcon-mamba-7b", "mamba_scan")])
+def test_serving_launch_counts_unchanged_by_training(dev, name, kernel):
+    """A prefill (no gradient recorded, even with parameters that require
+    one) launches the kernel once a layer and never enters the autograd
+    Functions."""
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models import LM
+
+    cfg = reduced(ARCHS[name])
+    model = LM(cfg, attn_impl="kernel", ssm_impl="kernel")
+    params = model.init(torch.Generator(device=dev).manual_seed(6))
+    params = torch.utils._pytree.tree_map(lambda t: t.requires_grad_(),
+                                          params)
+    tokens = torch.randint(0, cfg.vocab, (2, 24), device=dev)
+    entered = []
+    real = (ops._FlashAttention.apply, ops._MambaScan.apply)
+    ops._FlashAttention.apply = lambda *a: entered.append(a) or real[0](*a)
+    ops._MambaScan.apply = lambda *a: entered.append(a) or real[1](*a)
+    try:
+        _build.reset_counts()
+        logits, _, _ = model.prefill(params, {"tokens": tokens})
+    finally:
+        ops._FlashAttention.apply, ops._MambaScan.apply = real
+    assert _build.counts()[kernel] == cfg.n_layers and not entered
+    assert torch.isfinite(logits).all()

@@ -181,7 +181,9 @@ def test_distributed_modules_and_examples_import_no_jax():
 
     code = (
         "import sys, repro_torch.search.distributed, repro_torch.launch.mesh, "
-        "repro_torch.configs.paper_dtw, repro_torch.testing.faults; "
+        "repro_torch.configs.paper_dtw, repro_torch.testing.faults, "
+        "repro_torch.train, repro_torch.data.tokens, "
+        "repro_torch.distributed.compression, repro_torch.models.convert; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]; "
         "print(bad); sys.exit(1 if bad else 0)")
@@ -191,7 +193,8 @@ def test_distributed_modules_and_examples_import_no_jax():
     assert out.returncode == 0, out.stdout + out.stderr
     scripts = sorted((ROOT / "examples_torch").glob("*.py"))
     assert [p.name for p in scripts] == [
-        "distributed_search.py", "quickstart.py", "ucr_classification.py"]
+        "distributed_search.py", "quickstart.py", "train_lm.py",
+        "ucr_classification.py"]
     for path in scripts + [ROOT / "chip_smoke.py"]:
         for node in ast.walk(ast.parse(path.read_text())):
             names = ([a.name for a in node.names]
