@@ -2,9 +2,14 @@
 """On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
     python3 chip_smoke.py            # one CUDA card, from the repo root
-    python3 chip_smoke.py --profile  # also profile each path's warm search,
-                                     # one request of each LM and one warm
+    python3 chip_smoke.py --profile  # also profile each path's warm search
+                                     # (after the kernel checks), one
+                                     # request of each LM and one warm
                                      # train step of each stepped case
+    python3 chip_smoke.py --lm-only  # only the build and the LM requests
+                                     # (7 and 7a), with their checks; no
+                                     # result lines (with --profile, their
+                                     # profiles)
 
 1. prints the card (``nvidia-smi`` name and power limit) and builds the
    nine CUDA sources of K1-K10 from ``src/repro_torch/csrc`` (``nvcc``,
@@ -66,7 +71,9 @@
    warm search runs once more with K4 forced into its block form, outside
    the windows, and must return the same ids, distances and n_dtw; one
    ``wide path:`` line a case, with both warm walls (with ``--profile``,
-   a profile of wide-b's and wide-c's warm search);
+   a profile of wide-b's and wide-c's warm search, taken after the kernel
+   checks of 8: a profiler session of a whole search before them left
+   the short sessions of ``device_ms`` seeing no kernel);
 6c. drives the dense path, the unstaged search (``CascadeConfig(
    staged=False)``: ``dense_plan`` scores every pair with K2's full form,
    the paper's baseline): ``build_index`` -> ``classify`` -> a warm
@@ -79,7 +86,8 @@
    search on the same index and to the kernel brute force (64 queries),
    trip no guard, ``degraded`` 0; one ``dense path:`` line a case with
    both mean ``n_dtw`` (with ``--profile``, a profile of dense-a's warm
-   search); no other path may launch the full form;
+   search, after the kernel checks of 8); no other path may launch the
+   full form;
 7. LM serve phase, at full width with random weights drawn on the card
    from a seed (bf16 compute and KV cache), each request in its own
    launch-count window: gemma2-2b (26 layers) scores 2 prompts of 8192
@@ -96,6 +104,34 @@
    model (see ``LM_BF16_MAX_ABS``); prints one ``lm request``
    line per request (prefill seconds, prompt and decode tokens/s,
    launches, peak device memory, the checks' readings);
+7a. the MoE, hybrid, VLM and audio requests (``run_lm_families``), each
+   in its own launch-count window: moe-qwen (qwen2-moe-a2.7b unmodified,
+   its bf16 tree built a layer at a time) and moe-deepseek
+   (deepseek-moe-16b at 4 layers) score 2 x 8192 in a full cache (K9 an
+   attention layer) and ``greedy_decode`` 4 x 1024 + 32 (no kernel);
+   hybrid-jamba (jamba-1.5-large-398b at full width, its first period's
+   layers 0-4: Mamba at 0-3 with MoE at 1 and 3, attention at 4)
+   ``greedy_decode``s 2 x 8192 + 16 (K10 a Mamba layer) and prefills the
+   same prompts in a full cache (K9 and K10); audio-hubert (hubert-xlarge
+   unmodified) prefills 2 x 8192 frames (K9 non-causal at D = 80, 48
+   launches; ``decode_step`` must refuse); vlm-qwen2vl (qwen2-vl-72b at 2
+   layers) prefills 2 x 8192 with a 1024-patch ``vision_embeds`` prefix
+   and (B, 3, S) M-RoPE streams, then steps a ``DecodeSession`` 32 times.
+   Checks: the launch counts, finite logits and tokens in ``[0, vocab)``,
+   the kernel route against the plain route in bf16 (``LM_BF16_MAX_ABS``,
+   beside the reading of two plain routes that differ in chunk size) and
+   in f32 (``LM_F32_TOL``; the MoE models on a 2-layer cut at full
+   width, jamba's Mamba + MLP and Mamba + MoE layers, drawn after its
+   served tree is freed), the MoE models' routing agreement between the
+   routes, and the
+   first decode step: for a model with MoE layers the kernel route's step
+   against the plain route's (a step's capacity drops what a prefill
+   keeps), for qwen2-vl-72b against a full-cache prefill of prompt +
+   token; one ``lm request`` line each, with the prefill's FLOP bound
+   (the routed experts' kept rows, as routed in this run) and the MoE
+   decode step's least bytes (the experts this run's steps route to),
+   each beside the dense formulation's cost (every padded expert, every
+   capacity slot);
 8. holds each kernel against its plain PyTorch version on the card: at the
    paths' recorded inputs (timed with CUDA events) and over a sweep of
    small shapes (w in {0, 1, L/4, L}, odd L, cutoffs that kill pairs,
@@ -135,11 +171,13 @@
    cores; f32: CUDA cores) at a local and a global layer of the scoring
    prefill (and without the cap, beside ``F.scaled_dot_product_attention``
    as the library time, for the local layer with a boolean window mask),
-   its f32 form at the global layer's inputs in f32, and over a sweep (g in
-   {1, 2, 8}, D in {64, 96, 128, 256}, causal and not, window, cap, ragged
-   S), each shape in its own type and in bf16, to rtol 1e-4, atol 1e-5 in
-   f32 and 1e-2 in bf16, where the relative RMS error must also stay
-   within 1e-2; K9 also at the shapes its wrapper repairs (g = 96 in f32
+   its f32 form at the global layer's inputs in f32, at layer 0 of
+   qwen2-moe-a2.7b's scoring prefill (MHA, D = 128, causal) and of
+   hubert-xlarge's (D = 80, non-causal) beside SDPA, and over a sweep (g
+   in {1, 2, 4, 8}, D in {64, 80, 96, 128, 256}, causal and not, window,
+   cap, ragged S), each shape in its own type and in bf16, to rtol 1e-4,
+   atol 1e-5 in f32 and 1e-2 in bf16, where the relative RMS error must
+   also stay within 1e-2; K9 also at the shapes its wrapper repairs (g = 96 in f32
    and bf16, bf16 D = 100, bf16 storage off 16-byte alignment) and its
    f32-arithmetic form (every f32 call, and bf16 past D = 256: one
    cluster of ceil(D / 128) blocks up to D = 2048, column groups past it)
@@ -316,9 +354,42 @@ LM_FALCON = dict(batch=4, prompt=2048, new=32)
 # scan chunk 256 and 64) differ by 0.0469 (gemma2-2b) and 0.172
 # (falcon-mamba-7b) in the last-token logits (PERF.md, section 6).  So a
 # bf16 difference is held to a fixed largest absolute difference per
-# model, about three times those readings.
+# model, about three times those readings.  The same reading (printed as
+# bf16_plain_chunk_noise_max_abs; KV chunk 512, or a quarter of a shorter
+# prompt) on one H100 80GB HBM3 (700 W), run_lm_families' requests:
+# qwen2-moe-a2.7b 0.0781 (its two plain routes route 4.5 % of (token,
+# layer) pairs to other experts), deepseek-moe-16b 0.0352, hubert-xlarge
+# 0.0391, qwen2-vl-72b 0.0313; jamba-1.5-large-398b 0.0313 at full width,
+# layers 0-4, 2 x 8192 (two bf16 ulps of its logits below 4, one of the
+# largest, 4.375; at 2 x 2048 it read 0.0156), the kernel route 0.0313.
 LM_F32_TOL = dict(rtol=1e-3, atol=1e-3)
-LM_BF16_MAX_ABS = {"gemma2-2b": 0.15, "falcon-mamba-7b": 0.5}
+LM_BF16_MAX_ABS = {"gemma2-2b": 0.15, "falcon-mamba-7b": 0.5,
+                   "qwen2-moe-a2.7b": 0.25, "deepseek-moe-16b": 0.1,
+                   "jamba-1.5-large-398b": 0.094, "hubert-xlarge": 0.12,
+                   "qwen2-vl-72b": 0.1}
+# The MoE, hybrid, VLM and audio requests (run_lm_families): qwen2-moe-a2.7b
+# unmodified and deepseek-moe-16b score LM_SCORE and greedy_decode
+# LM_MOE_DECODE; jamba-1.5-large-398b at full width and 5 layers
+# greedy_decodes LM_JAMBA and prefills the same prompts; hubert-xlarge
+# unmodified prefills
+# LM_AUDIO frames; qwen2-vl-72b prefills LM_VLM (a vision prefix of 32 x 32
+# patches, M-RoPE streams) and steps a DecodeSession.  The f32 route checks
+# of the MoE models run LM_F32_LAYERS layers at full width.
+LM_MOE_DECODE = dict(batch=4, prompt=1024, new=32)
+LM_JAMBA = dict(batch=2, prompt=8192, new=16)
+LM_AUDIO = dict(batch=2, frames=8192)
+LM_VLM = dict(batch=2, prompt=8192, patches=1024, grid=32, steps=32)
+LM_DEPTH = {"deepseek-moe-16b": 4, "qwen2-vl-72b": 2,
+            "jamba-1.5-large-398b": 5}
+LM_DEPTH_WHY = {
+    "deepseek-moe-16b": "its dense prelude layer and 3 MoE layers, the "
+                        "structure it adds to qwen2-moe-a2.7b, whose MoE "
+                        "layers run at full depth",
+    "jamba-1.5-large-398b": "its first period's layers 0-4 (Mamba at 0-3, "
+                            "MoE at 1 and 3, attention at 4), 48 GB in "
+                            "bf16; its 398B weights are ~800 GB",
+    "qwen2-vl-72b": "its 72B weights are 144 GB in bf16"}
+LM_F32_LAYERS = 2
 # Train path: AdamW steps from weights drawn on the card from LM_SEED (f32
 # at rest), batches from the port's TokenPipeline(seed=0).  train-gemma is
 # gemma2-2b unmodified in bf16 with remat, S = 8192 (twice the window, as
@@ -364,8 +435,8 @@ K9_TOL = {"float32": dict(rtol=1e-4, atol=1e-5),
 # where the atol may not: rounding P and each output to bf16 (unit
 # roundoff 2^-8) puts it near 2e-3 to 5e-3
 K9_BF16_REL_RMS = 1e-2
-# K9 sweep: g in {1, 2, 8}, D in {64, 128, 256}, causal and not, window,
-# cap, ragged and unequal Sq / Skv, f32 and bf16
+# K9 sweep: g in {1, 2, 4, 8}, D in {64, 80, 96, 128, 256}, causal and
+# not, window, cap, ragged and unequal Sq / Skv, f32 and bf16
 FLASH_SWEEP = [
     # B, Sq, Skv, Hq, Hkv, D, causal, window, cap, dtype
     (2, 40, 40, 4, 4, 64, True, None, None, "float32"),
@@ -376,6 +447,8 @@ FLASH_SWEEP = [
     (1, 300, 300, 8, 4, 256, True, 64, 50.0, "bfloat16"),
     (3, 65, 65, 2, 2, 96, False, None, None, "bfloat16"),
     (1, 1, 17, 8, 4, 256, False, None, 50.0, "float32"),
+    (2, 100, 100, 4, 4, 80, False, None, None, "bfloat16"),
+    (1, 77, 90, 8, 2, 80, True, 16, 30.0, "float32"),
 ]
 # K10 sweep: N in {4, 16, 17, 32, 64, 128, 256}, S and C multiples of no
 # tile, h0 nonzero
@@ -1096,7 +1169,7 @@ def run_long_path(torch, dev):
     return ds, index, cfg, recs, launches
 
 
-def run_wide_path(torch, dev, stores: dict, profile: bool):
+def run_wide_path(torch, dev, stores: dict, profiles: list | None):
     """The wide path: for each case of ``WIDE``, build_index -> classify
     -> a warm nn_search with guards on, counts set to 0 before the build
     and read after classify, then the warm search once more with K4
@@ -1104,9 +1177,10 @@ def run_wide_path(torch, dev, stores: dict, profile: bool):
     wall beside the slots form's); checks that K4 ran in its slots form only
     (never the warp or block form, never K5), ids equal to the kernel brute
     force with distances bit-equal, and no guard trip; prints one ``wide
-    path:`` line per case (with ``--profile``, a profile of the warm search
-    of wide-b and wide-c).  Returns the summed launch window and each
-    case's recorder of its largest DTW launch."""
+    path:`` line per case (with ``profiles``, a list, the warm searches of
+    wide-b and wide-c go into it, to be profiled later by
+    ``profile_search``).  Returns the summed launch window and each case's
+    recorder of its largest DTW launch."""
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels.dtw_band import k4_form, k4_slots
     from repro_torch.search import (CascadeConfig, EngineConfig,
@@ -1202,14 +1276,14 @@ def run_wide_path(torch, dev, stores: dict, profile: bool):
             "guards": guard.summary(),
             "brute_force_queries": nq, "brute_force_s": t8 - t7,
             "largest_round_pairs": rec.args[0].shape[0]}))
-        if profile and label != "wide-a":
-            profile_search(torch, ds, index, cfg, f"{label} path")
+        if profiles is not None and label != "wide-a":
+            profiles.append((ds, index, cfg, f"{label} path"))
         del index, res, res2, res3, pred
     return total, recs
 
 
 def dense_case(torch, dev, label: str, ds, cfg, staged_cfg, build_kw: dict,
-               profile: bool):
+               profiles: list | None):
     """One case of the dense path: ``build_index`` -> ``classify`` -> a
     warm ``nn_search`` with guards on under the unstaged ``cfg``, counts
     set to 0 before the build and read after ``classify`` (and again for
@@ -1298,12 +1372,13 @@ def dense_case(torch, dev, label: str, ds, cfg, staged_cfg, build_kw: dict,
         "launches_warm": {k: v for k, v in warm.items() if v},
         "guards": guard.summary(),
         "brute_force_queries": nq, "brute_force_s": t8 - t7}))
-    if profile and label == "dense-a":
-        profile_search(torch, ds, index, cfg, f"{label} path")
+    if profiles is not None and label == "dense-a":
+        profiles.append((ds, index, cfg, f"{label} path"))
     return launches, rec, res
 
 
-def run_dense_path(torch, dev, stores: dict, sk_cfg, profile: bool):
+def run_dense_path(torch, dev, stores: dict, sk_cfg,
+                   profiles: list | None):
     """The dense path: the unstaged search (``CascadeConfig(staged=False)``,
     ``dense_plan``: every pair scored by K2's full form) on the main store
     at w = 51 (dense-a) and w = L (dense-b), and on the sketch store under
@@ -1329,7 +1404,7 @@ def run_dense_path(torch, dev, stores: dict, sk_cfg, profile: bool):
         build_kw = dict(sketch=16, calibrate=sk_cfg, mask=True) if sketch \
             else {}
         launches, rec, res = dense_case(torch, dev, label, ds, cfg, staged,
-                                        build_kw, profile)
+                                        build_kw, profiles)
         for kname, n in launches.items():
             total[kname] += n
         recs[label] = rec
@@ -1705,6 +1780,8 @@ def paper_kernel_keys(torch, recs) -> dict:
     column blocks for the plain version, and K2's full form over the same
     block and store; K3 and K4 their largest calls, K4 with its cutoffs):
     ``paper_path_*`` keys for each record."""
+    import torch.nn.functional as F
+
     from repro_torch.core.lower_bounds import _n_bands
     from repro_torch.kernels import ref
     from repro_torch.kernels.dtw_band import dtw_band_cuda
@@ -1718,12 +1795,18 @@ def paper_kernel_keys(torch, recs) -> dict:
     N, L = b.shape
     err = compare("envelope (paper path)", envelope_cuda(b, w),
                   ref.envelope_ref(b, w), exact=True)
+    # the library time: max_pool1d of [x, -x] over the window, as at the
+    # main path's store
+    stacked = torch.stack([b, -b])
     keys["envelope"] = dict(
         paper_path_shape=f"N={N} L={L} w={w}", paper_path_max_abs_err=err,
         paper_path_ms=time_ms(lambda: envelope_cuda(b, w), 5),
         paper_path_plain_ms=time_ms(lambda: ref.envelope_ref(b, w), 2,
                                     warmup=1),
-        paper_path_bound_ms=bound(12.0 * N * L, 6.0 * N * L)[0])
+        paper_path_bound_ms=bound(12.0 * N * L, 6.0 * N * L)[0],
+        paper_path_library_ms=time_ms(lambda: F.max_pool1d(
+            stacked, 2 * w + 1, stride=1, padding=w), 3, warmup=1))
+    del stacked
 
     args = recs["lb_enhanced_cuda"].args
     kw = recs["lb_enhanced_cuda"].kwargs
@@ -1981,21 +2064,22 @@ def lm_request_line(name: str, req: dict) -> None:
     print(f"lm request {name}: " + json.dumps(req))
 
 
-def lm_weights(torch, dev, arch: str):
-    """A configuration at full width and depth, f32 weights drawn on the
-    card from ``LM_SEED`` and their bf16 compute copy, made once, and the
-    generator (which then draws the prompts)."""
+def lm_weights(torch, dev, arch):
+    """A configuration (by name, at full width and depth, or an
+    ``ArchConfig``), f32 weights drawn on the card from ``LM_SEED`` and
+    their bf16 compute copy, made once, and the generator (which then
+    draws the prompts)."""
     from repro_torch.configs import ARCHS
     from repro_torch.models import LM
 
-    cfg = ARCHS[arch]
+    cfg = ARCHS[arch] if isinstance(arch, str) else arch
     gen = torch.Generator(device=dev).manual_seed(LM_SEED)
     t0 = time.perf_counter()
     params = LM(cfg).init(gen, device=dev)
     cparams = LM(cfg).compute_params(params)
     torch.cuda.synchronize()
     n = sum(t.numel() for t in torch.utils._pytree.tree_leaves(params))
-    print(f"lm weights {arch}: " + json.dumps({
+    print(f"lm weights {cfg.name}: " + json.dumps({
         "n_layers": cfg.n_layers, "params": n,
         "config_n_params": cfg.n_params(), "f32_bytes": 4 * n,
         "init_and_cast_s": time.perf_counter() - t0,
@@ -2013,18 +2097,19 @@ def lm_models(torch, cfg, dtype) -> dict:
             "plain": LM(cfg, **kw)}
 
 
-def lm_prefill(torch, model, cparams, tokens, max_len=None):
-    """One ``LM.prefill`` with the launch counts set to 0 just before and
-    read just after; returns (logits, caches, seconds, counts, peak
-    bytes)."""
+def lm_prefill(torch, model, cparams, batch, max_len=None):
+    """One ``LM.prefill`` of ``batch`` (an input dict, or a token tensor)
+    with the launch counts set to 0 just before and read just after;
+    returns (logits, caches, seconds, counts, peak bytes)."""
     from repro_torch.kernels import _build
 
+    if not isinstance(batch, dict):
+        batch = {"tokens": batch}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_counts()
     t0 = time.perf_counter()
-    logits, caches, _ = model.prefill(cparams, {"tokens": tokens},
-                                      max_len=max_len)
+    logits, caches, _ = model.prefill(cparams, batch, max_len=max_len)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     check(torch.isfinite(logits).all().item(), "non-finite prefill logits")
@@ -2064,17 +2149,20 @@ def lm_greedy(torch, model, cparams, prompt, n_new: int, vocab: int):
 
 
 def lm_first_step(torch, model, cparams, prompt, kname: str,
-                  n_layers: int, prefill_launches: int):
-    """A ``DecodeSession`` prefill (``prefill_launches`` of ``kname``) and
-    its first step (no launch), and a full-cache prefill of prompt + token
-    (the kernel once per layer).  Returns (step logits, prefill
-    logits)."""
+                  n_launches: int, prefill_launches: int):
+    """A ``DecodeSession`` prefill of ``prompt`` (a token tensor or an
+    input dict; ``prefill_launches`` of ``kname``) and its first step (no
+    launch), and a full-cache prefill of prompt + token (``n_launches``:
+    the kernel once per layer of its mixer).  Returns (step logits,
+    prefill logits)."""
     from repro_torch.kernels import _build
     from repro_torch.serve import DecodeSession
 
-    sess = DecodeSession(model, cparams, max_len=prompt.shape[1] + 1)
+    batch = prompt if isinstance(prompt, dict) else {"tokens": prompt}
+    S = batch["tokens"].shape[1]
+    sess = DecodeSession(model, cparams, max_len=S + 1)
     _build.reset_counts()
-    logits0 = sess.prefill({"tokens": prompt})
+    logits0 = sess.prefill(batch)
     torch.cuda.synchronize()
     check(_build.counts()[kname] == prefill_launches,
           f"session prefill: {kname} launched {_build.counts()[kname]} "
@@ -2087,11 +2175,31 @@ def lm_first_step(torch, model, cparams, prompt, kname: str,
           f"a decode step launched a kernel: {_build.counts()}")
     check(torch.isfinite(step).all().item(), "non-finite step logits")
     del sess
-    full = torch.cat([prompt, tok.to(prompt.dtype)], dim=1)
-    want, _, _, counts, _ = lm_prefill(torch, model, cparams, full)
-    check(counts[kname] == n_layers, f"full-cache prefill: {kname} "
-          f"launched {counts[kname]} times, expected {n_layers}")
+    want, _, _, counts, _ = lm_prefill(torch, model, cparams,
+                                       extend_batch(torch, batch, tok))
+    check(counts[kname] == n_launches, f"full-cache prefill: {kname} "
+          f"launched {counts[kname]} times, expected {n_launches}")
     return step, want
+
+
+def extend_batch(torch, batch: dict, tok) -> dict:
+    """``batch`` with the (B, 1) tokens ``tok`` appended, at the decode
+    step's position (every M-RoPE stream at the old length)."""
+    out = dict(batch)
+    out["tokens"] = torch.cat([batch["tokens"],
+                               tok.to(batch["tokens"].dtype)], dim=1)
+    if "positions" in batch:
+        p = batch["positions"]
+        out["positions"] = torch.cat(
+            [p, torch.full_like(p[..., :1], p.shape[-1])], dim=-1)
+    return out
+
+
+def n_kernel_layers(cfg, kname: str) -> int:
+    """Layers whose mixer launches ``kname`` in a kernel-route prefill
+    (K9's counts: attention layers; K10's: Mamba layers)."""
+    mixer = "mamba" if kname.startswith("mamba") else "attn"
+    return sum(cfg.layer_spec(i).mixer == mixer for i in range(cfg.n_layers))
 
 
 def max_abs(a, b) -> float:
@@ -2104,33 +2212,143 @@ def bf16_check(name: str, cfg, err: float) -> None:
     check(err <= limit, f"{name}: max abs difference {err} > {limit}")
 
 
-def lm_route_checks(torch, label: str, cfg, params, cparams, tokens,
-                    kname: str, logits16, kname32: str | None = None):
+def lm_route_checks(torch, label: str, cfg, params, cparams, batch,
+                    logits16, cfg32=None, noise: bool = False) -> dict:
+    """``lm_bf16_route_checks`` of the served tree ``cparams``, then
+    ``lm_f32_route_check`` of the f32 weights ``params`` of ``cfg32``
+    (default ``cfg``: a depth cut of the served model)."""
+    out = lm_bf16_route_checks(torch, label, cfg, cparams, batch, logits16,
+                               noise)
+    out.update(lm_f32_route_check(torch, label, cfg32 or cfg, params, batch))
+    return out
+
+
+def lm_bf16_route_checks(torch, label: str, cfg, cparams, batch, logits16,
+                         noise: bool = False) -> dict:
     """The kernel route's bf16 prefill logits (``logits16``) against the
-    plain route's (held to ``LM_BF16_MAX_ABS``), and the same prefill in
-    f32 compute through both routes (held to ``LM_F32_TOL``; the f32
-    kernel route launches ``kname32``, default ``kname``).  Returns the
-    readings."""
-    kname32 = kname32 or kname
-    m16, m32 = lm_models(torch, cfg, torch.bfloat16), lm_models(
-        torch, cfg, torch.float32)
-    plain, _, plain_s, counts, _ = lm_prefill(torch, m16["plain"], cparams,
-                                              tokens)
-    check(counts[kname] == 0, f"the plain route launched {kname}")
+    plain route's, held to ``LM_BF16_MAX_ABS``.  With ``noise``, also a
+    second plain route with smaller chunks (KV chunk 512 and scan chunk 64
+    against the plain route's 1024 and 256, or a quarter of the prompt
+    where that is shorter): the bf16 noise of summation order that
+    ``LM_BF16_MAX_ABS`` is set from.  For a model with MoE layers, the
+    share of (token, layer) routings whose expert sets the two routes
+    share (``RouteRecorder``) and the expert rows the kernel route's
+    routing keeps (``kept_expert_rows``).  Returns the readings."""
+    from repro_torch.models import LM
+
+    moe = n_moe_layers(cfg) > 0
+    m16 = lm_models(torch, cfg, torch.bfloat16)
+    rec = RouteRecorder() if moe else None
+    try:
+        plain, _, plain_s, counts, _ = lm_prefill(torch, m16["plain"],
+                                                  cparams, batch)
+        check_launches(f"{label} bf16 plain route prefill", counts, {})
+        out = {"plain_route_prefill_s": plain_s}
+        if moe:
+            plain_ids = rec.take()
+            again = lm_prefill(torch, m16["kernel"], cparams, batch)[0]
+            check(torch.equal(again, logits16), f"{label}: a second kernel "
+                  "route prefill gave other logits")
+            kernel_ids = rec.take()
+            out["bf16_routing_agreement_kernel_vs_plain"] = \
+                RouteRecorder.agreement(kernel_ids, plain_ids)
+            out["moe_kept_expert_rows"] = kept_expert_rows(cfg, kernel_ids)
+        if noise:
+            S = next(iter(batch.values())).shape[1] \
+                if isinstance(batch, dict) else batch.shape[1]
+            chunks = dict(kv_chunk=min(512, S // 4),
+                          mamba_chunk=min(64, S // 4))
+            small = lm_prefill(torch, LM(cfg, compute_dtype=torch.bfloat16,
+                                         cache_dtype=torch.bfloat16,
+                                         **chunks), cparams, batch)[0]
+            out["bf16_plain_chunk_noise_max_abs"] = max_abs(small, plain)
+            out["bf16_plain_chunk_noise_chunks"] = chunks
+            if moe:
+                out["bf16_routing_agreement_plain_chunks"] = \
+                    RouteRecorder.agreement(rec.take(), plain_ids)
+            del small
+    finally:
+        if rec is not None:
+            rec.restore()
     err16 = max_abs(logits16, plain)
     bf16_check(f"{label} bf16 prefill, kernel vs plain route", cfg, err16)
-    k32, _, _, counts, _ = lm_prefill(torch, m32["kernel"], params, tokens)
-    check(counts[kname32] == cfg.n_layers, f"f32 prefill: {kname32} "
-          f"launched {counts[kname32]} times, expected {cfg.n_layers}")
-    p32 = lm_prefill(torch, m32["plain"], params, tokens)[0]
+    out.update({"bf16_vs_plain_max_abs_err": err16,
+                "bf16_logits_max_abs": plain.abs().max().item(),
+                "bf16_argmax_equal_to_plain": bool(torch.equal(
+                    logits16.argmax(-1), plain.argmax(-1)))})
+    return out
+
+
+def lm_f32_route_check(torch, label: str, cfg32, params, batch) -> dict:
+    """The same prefill in f32 compute through both routes on ``cfg32``
+    (f32 weights ``params``), held to ``LM_F32_TOL``; the kernel route
+    launches K9's f32 form once an attention layer and K10 once a Mamba
+    layer, the plain route nothing."""
+    m32 = lm_models(torch, cfg32, torch.float32)
+    k32, _, _, counts, _ = lm_prefill(torch, m32["kernel"], params, batch)
+    check_launches(f"{label} f32 kernel route prefill", counts,
+                   prefill_launches(cfg32, torch.float32))
+    p32, _, _, counts, _ = lm_prefill(torch, m32["plain"], params, batch)
+    check_launches(f"{label} f32 plain route prefill", counts, {})
     err32 = compare(f"{label} f32 prefill, kernel vs plain route", k32,
                     p32, exact=False, **LM_F32_TOL)
-    return {"plain_route_prefill_s": plain_s,
-            "bf16_vs_plain_max_abs_err": err16,
-            "bf16_logits_max_abs": plain.abs().max().item(),
-            "bf16_argmax_equal_to_plain": bool(torch.equal(
-                logits16.argmax(-1), plain.argmax(-1))),
-            "f32_vs_plain_max_abs_err": err32}
+    return {"f32_vs_plain_max_abs_err": err32, "f32_layers": cfg32.n_layers}
+
+
+def n_moe_layers(cfg) -> int:
+    return sum(cfg.layer_spec(i).moe for i in range(cfg.n_layers))
+
+
+def moe_capacity(cfg, n_tokens: int) -> int:
+    """``models.moe``'s capacity an expert at the default factor 1.25."""
+    return math.ceil(n_tokens * cfg.top_k / cfg.n_experts * 1.25)
+
+
+def kept_expert_rows(cfg, ids: list) -> int:
+    """The expert rows a forward must compute: over the MoE layers'
+    routings ``ids`` ((T, k) expert ids each), the assignments within
+    their expert's capacity."""
+    rows = 0
+    for x in ids:
+        n = x.reshape(-1).bincount(minlength=cfg.n_experts_padded)
+        rows += int(n.clamp(max=moe_capacity(cfg, x.shape[0])).sum())
+    return rows
+
+
+class RouteRecorder:
+    """Wraps ``models.blocks.moe_apply`` to keep, for each MoE layer a
+    forward runs, the experts each token is routed to (the top k of
+    ``models.moe.route`` on the layer's input, the router the layer runs)
+    as sorted (T, k) ids."""
+
+    def __init__(self):
+        from repro_torch.models import blocks
+        from repro_torch.models.moe import route
+
+        self.blocks, self.orig, self.ids = blocks, blocks.moe_apply, []
+
+        def recorded(p, x, **kw):
+            ids = route(x.reshape(-1, x.shape[-1]), p["router"], kw["top_k"],
+                        kw["n_real"])[3]
+            self.ids.append(ids.sort(dim=-1).values)
+            return self.orig(p, x, **kw)
+
+        blocks.moe_apply = recorded
+
+    def take(self) -> list:
+        ids, self.ids = self.ids, []
+        return ids
+
+    def restore(self) -> None:
+        self.blocks.moe_apply = self.orig
+
+    @staticmethod
+    def agreement(a: list, b: list) -> float:
+        """The share of (token, layer) pairs whose expert sets agree."""
+        check(len(a) == len(b) and len(a) > 0,
+              f"routings of {len(a)} and {len(b)} MoE layers")
+        same = sum(int((x == y).all(-1).sum()) for x, y in zip(a, b))
+        return same / sum(x.shape[0] for x in a)
 
 
 def lm_step_checks(torch, label: str, cfg, params, cparams, prompt,
@@ -2141,13 +2359,14 @@ def lm_step_checks(torch, label: str, cfg, params, cparams, prompt,
     ``kname32``, default ``kname``) to ``LM_F32_TOL``."""
     step, want = lm_first_step(
         torch, lm_models(torch, cfg, torch.bfloat16)["kernel"], cparams,
-        prompt, kname, cfg.n_layers, prefill_launches)
+        prompt, kname, n_kernel_layers(cfg, kname), prefill_launches)
     err16 = max_abs(step, want)
     bf16_check(f"{label} bf16 first decode step vs full-cache prefill",
                cfg, err16)
     step, want = lm_first_step(
         torch, lm_models(torch, cfg, torch.float32)["kernel"], params,
-        prompt, kname32 or kname, cfg.n_layers, prefill_launches)
+        prompt, kname32 or kname, n_kernel_layers(cfg, kname32 or kname),
+        prefill_launches)
     err32 = compare(f"{label} f32 first decode step vs full-cache prefill",
                     step, want, exact=False, **LM_F32_TOL)
     return {"bf16_first_step_vs_full_prefill_max_abs_err": err16,
@@ -2183,16 +2402,11 @@ def run_lm_phase(torch, dev, profile: bool):
           f"times, expected {cfg.n_layers}")
     check(logits.shape == (LM_SCORE["batch"], cfg.vocab), "scoring logits")
     route = lm_route_checks(torch, "gemma2-2b scoring", cfg, params, cp,
-                            tokens, "flash_attention", logits,
-                            "flash_attention_f32")
-    lm_request_line("gemma2-2b score", {
-        "model": cfg.name, "B": LM_SCORE["batch"],
-        "prompt": LM_SCORE["prompt"], "new_tokens": 0,
-        "call": "LM.prefill(params, {tokens}), full cache",
-        "prefill_s": secs, "prompt_tokens_per_s": tokens.numel() / secs,
-        "decode_tokens_per_s": None,
-        "launches": {k: v for k, v in counts.items() if v},
-        "max_memory_allocated": peak, **route, "tol": tol})
+                            tokens, logits)
+    lm_request_line("gemma2-2b score", prefill_line(
+        cfg, {"tokens": tokens}, secs, counts, peak, route, tol,
+        "LM.prefill(params, {tokens}), full cache",
+        {"batch": "prefill_32k's 32 -> 2", "prompt": "32768 -> 8192"}))
     if profile:
         profile_call(torch, lambda: kern.prefill(cp, {"tokens": tokens}),
                      "gemma2-2b scoring prefill")
@@ -2256,23 +2470,550 @@ def run_lm_phase(torch, dev, profile: bool):
     check(logits.shape == (LM_FALCON["batch"], cfg.vocab),
           "falcon prefill logits")
     route = lm_route_checks(torch, "falcon-mamba-7b", cfg, params, cp,
-                            prompt, "mamba_scan", logits)
+                            prompt, logits)
     steps = lm_step_checks(torch, "falcon-mamba-7b", cfg, params, cp,
                            prompt, "mamba_scan", cfg.n_layers)
     lm_request_line("falcon-mamba-7b greedy_decode",
                     {**decode_line, **steps, "tol": tol})
-    lm_request_line("falcon-mamba-7b prefill", {
-        "model": cfg.name, "B": LM_FALCON["batch"],
-        "prompt": LM_FALCON["prompt"], "new_tokens": 0,
-        "call": "LM.prefill(params, {tokens}), the same prompts",
-        "prefill_s": secs, "prompt_tokens_per_s": prompt.numel() / secs,
-        "decode_tokens_per_s": None,
-        "launches": {k: v for k, v in counts.items() if v},
-        "max_memory_allocated": peak, **route, "tol": tol})
+    lm_request_line("falcon-mamba-7b prefill", prefill_line(
+        cfg, {"tokens": prompt}, secs, counts, peak, route, tol,
+        "LM.prefill(params, {tokens}), the same prompts", {}))
     if profile:
         profile_call(torch, lambda: kern.prefill(cp, {"tokens": prompt}),
                      "falcon-mamba-7b prefill")
     del kern, params, cp, prompt, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return windows, recs
+
+
+# ---------------------------------------------------------------------------
+# LM families: MoE, hybrid, VLM and audio
+# ---------------------------------------------------------------------------
+
+def lm_served_weights(torch, dev, cfg):
+    """The bf16 compute tree of ``cfg`` drawn on the card from ``LM_SEED``
+    by ``LM.init(dtype=bfloat16)``, which casts each part as it is drawn:
+    qwen2-moe-a2.7b's f32 tree (60.6 GB) and its bf16 copy do not fit 80
+    GB together, nor does one of jamba's f32 MoE layers (38.7 GB) beside
+    its other bf16 layers and that layer's bf16 copy.  Returns the tree
+    and the generator (which then draws the prompts)."""
+    from repro_torch.models import LM
+    from repro_torch.tree import tree_leaves
+
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED)
+    t0 = time.perf_counter()
+    cp = LM(cfg).init(gen, device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in tree_leaves(cp))
+    print(f"lm weights {cfg.name}: " + json.dumps({
+        "n_layers": cfg.n_layers, "params": n,
+        "config_n_params": cfg.n_params(),
+        "bf16_bytes": sum(t.numel() * t.element_size()
+                          for t in tree_leaves(cp)),
+        "built": "LM.init(dtype=bfloat16): each part f32 drawn, then cast",
+        "init_and_cast_s": time.perf_counter() - t0,
+        "memory_allocated": torch.cuda.memory_allocated(),
+        "max_memory_allocated": torch.cuda.max_memory_allocated()}))
+    return cp, gen
+
+
+def lm_f32_cut(torch, dev, cfg, n_layers: int):
+    """The served model's width at ``n_layers`` layers, f32 weights drawn
+    by ``LM.init`` from ``LM_SEED`` for the f32 route checks: its
+    embedding and layers are the served tree's first ones in f32 (the
+    same draws; the CPU tests hold ``LM.init(dtype=)`` to
+    ``compute_params`` of ``LM.init``)."""
+    from repro_torch.models import LM
+
+    cut = dataclasses.replace(cfg, n_layers=n_layers)
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED)
+    return cut, LM(cut).init(gen, device=dev)
+
+
+def prefill_launches(cfg, dtype) -> dict:
+    """The launches of a kernel-route prefill into a full cache: K9's form
+    for ``dtype`` once an attention layer, K10 once a Mamba layer."""
+    from repro_torch.kernels.flash_attention import k9_form
+    from repro_torch.kernels.mamba_scan import MAX_STATE
+
+    k9 = ("flash_attention" if k9_form(dtype, cfg.head_dim) == "bf16"
+          else "flash_attention_f32")
+    k10 = "mamba_scan" if cfg.ssm_state <= MAX_STATE else "mamba_scan_wide"
+    out = {k9: n_kernel_layers(cfg, k9), k10: n_kernel_layers(cfg, k10)}
+    return {k: v for k, v in out.items() if v}
+
+
+def check_launches(label: str, counts: dict, want: dict) -> None:
+    got = {k: v for k, v in counts.items() if v}
+    check(got == want, f"{label}: launches {got}, expected {want}")
+
+
+def grow_caches(torch, caches: list, n: int) -> list:
+    """A full-cache prefill's caches with ``n`` free slots appended to
+    each KV cache (an SSM state has no length)."""
+    import torch.nn.functional as F
+
+    for c in caches:
+        if "k" in c:
+            for key in ("k", "v"):
+                c[key] = F.pad(c[key], (0, 0, 0, 0, 0, n))
+    return caches
+
+
+def lm_moe_step_check(torch, label: str, dname: str, cfg, params,
+                      prompt) -> dict:
+    """The decode-step gate of a model with MoE layers, in ``dname``
+    ("bf16": the served tree, held to ``LM_BF16_MAX_ABS``; "f32": f32
+    weights of a depth cut ``cfg``, held to ``LM_F32_TOL``): the kernel
+    route's first decode step against the plain route's, each from its
+    own full-cache prefill of ``prompt`` (the kernel route's launching K9
+    in every attention layer, K10 in every Mamba layer), grown by one slot
+    and fed the kernel route's greedy token.  A step's T = B tokens give
+    capacity ceil(B k / n_real x 1.25) (1 for qwen2-moe-a2.7b at B = 4),
+    so a step drops assignments a prefill of prompt + token keeps (JAX's
+    semantics): the steps are held against each other, which have the
+    same capacity.  No step launches a kernel."""
+    from repro_torch.kernels import _build
+
+    dtype = torch.bfloat16 if dname == "bf16" else torch.float32
+    models = lm_models(torch, cfg, dtype)
+    steps, tok = {}, None
+    for route in ("kernel", "plain"):
+        logits, caches, _, counts, _ = lm_prefill(torch, models[route],
+                                                  params, prompt)
+        check_launches(f"{label} {dname} {route} prefill", counts,
+                       prefill_launches(cfg, dtype) if route == "kernel"
+                       else {})
+        if tok is None:
+            tok = torch.argmax(logits, -1)[:, None]
+        caches = grow_caches(torch, caches, 1)
+        _build.reset_counts()
+        steps[route], _ = models[route].decode_step(params, caches, tok,
+                                                    prompt.shape[1])
+        torch.cuda.synchronize()
+        check_launches(f"{label} {dname} {route} decode step",
+                       _build.counts(), {})
+        check(torch.isfinite(steps[route]).all().item(),
+              f"{label}: non-finite step logits")
+        del logits, caches
+    name = f"{label} {dname} first decode step, kernel vs plain route"
+    if dname == "bf16":
+        err = max_abs(steps["kernel"], steps["plain"])
+        bf16_check(name, cfg, err)
+        return {"bf16_first_step_kernel_vs_plain_max_abs_err": err}
+    err = compare(name, steps["kernel"], steps["plain"], exact=False,
+                  **LM_F32_TOL)
+    return {"f32_first_step_kernel_vs_plain_max_abs_err": err,
+            "f32_step_layers": cfg.n_layers}
+
+
+def lm_prefill_flop(cfg, B: int, S: int, expert_rows: int) -> float | None:
+    """FLOPs of a full-cache prefill of B x S tokens (None for a model
+    with Mamba layers): 2 per weight each token's products read
+    (attention projections, dense MLPs, shared experts, routers), 2 x 3 d
+    f for each of ``expert_rows`` routed-expert rows over the MoE layers,
+    4 D Hq per unmasked (query, key) pair of each attention layer, and the
+    head for the last tokens."""
+    d, T, dh = cfg.d_model, B * S, cfg.head_dim
+    fe = cfg.d_expert or cfg.d_ff
+    flop = 2.0 * B * d * cfg.vocab + 2.0 * 3 * d * fe * expert_rows
+    for i in range(cfg.n_layers):
+        spec = cfg.layer_spec(i)
+        if spec.mixer != "attn":
+            return None
+        flop += 2.0 * T * d * dh * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
+        flop += 4.0 * dh * cfg.n_heads * B * attn_pairs(S, S, cfg.causal,
+                                                        spec.window)
+        if spec.moe:
+            flop += 2.0 * T * d * cfg.n_experts_padded
+            flop += 2.0 * T * 3 * d * fe * cfg.n_shared_experts
+        else:
+            flop += 2.0 * T * (3 if cfg.act == "silu" else 2) * d * cfg.d_ff
+    return flop
+
+
+def prefill_line(cfg, batch, secs, counts, peak, route, tol, call,
+                 reduced_: dict) -> dict:
+    """An ``lm request`` line of a scoring prefill, with its FLOP bound at
+    989 TFLOP/s where ``lm_prefill_flop`` gives one: for a model with MoE
+    layers, the least work counts the expert rows this run's routing kept
+    (``route["moe_kept_expert_rows"]``), and the dense formulation's
+    FLOPs (every padded expert's whole capacity buffer, as the ``bmm``
+    and JAX's ``einsum`` compute it) stand beside it."""
+    x = batch.get("tokens", batch.get("frames"))
+    B, S = x.shape[:2]
+    line = {"model": cfg.name, "n_layers": cfg.n_layers, "B": B,
+            "prompt": S, "new_tokens": 0, "call": call, "prefill_s": secs,
+            "prompt_tokens_per_s": B * S / secs,
+            "decode_tokens_per_s": None}
+    rows = 0
+    if n_moe_layers(cfg):
+        rows = route["moe_kept_expert_rows"]
+        dense = (n_moe_layers(cfg) * cfg.n_experts_padded
+                 * moe_capacity(cfg, B * S))
+        line.update({"moe_expert_rows_kept": rows,
+                     "moe_expert_rows_dense": dense,
+                     "prefill_dense_einsum_flop":
+                         lm_prefill_flop(cfg, B, S, dense)})
+    flop = lm_prefill_flop(cfg, B, S, rows)
+    line.update({"prefill_flop": flop,
+                 "prefill_bound_s": None if flop is None
+                 else flop / PEAK_BF16,
+                 "launches": {k: v for k, v in counts.items() if v},
+                 "max_memory_allocated": peak, **route, "tol": tol,
+                 "reduced": reduced_})
+    return line
+
+
+def decode_routed_experts(torch, model, cparams, prompt, toks) -> float:
+    """The experts a ``greedy_decode``'s steps route to, distinct per
+    step and MoE layer, summed over the layers and averaged over the
+    steps: the same steps again (a ``DecodeSession`` fed ``toks``, the
+    tokens ``greedy_decode`` chose) with ``RouteRecorder`` on, outside
+    any timing."""
+    from repro_torch.serve import DecodeSession
+
+    n_new = toks.shape[1]
+    sess = DecodeSession(model, cparams, max_len=prompt.shape[1] + n_new)
+    sess.prefill({"tokens": prompt})
+    rec = RouteRecorder()
+    try:
+        for j in range(n_new - 1):
+            sess.step(toks[:, j:j + 1])
+    finally:
+        rec.restore()
+    ids = rec.take()
+    del sess
+    check(len(ids) == (n_new - 1) * n_moe_layers(model.cfg),
+          f"recorded {len(ids)} step routings")
+    return sum(int(x.unique().numel()) for x in ids) / (n_new - 1)
+
+
+def decode_bytes(cparams, cfg, B: int, kv_len: float, routed: float,
+                 cache_bytes: int = 2) -> dict:
+    """The bytes a decode step must move at least: every served parameter
+    but the embedding table (B rows gathered; the whole table where the
+    head is tied to it) and the expert stacks; ``routed`` experts' weights
+    (the experts this run's steps route to, ``decode_routed_experts``);
+    the KV caches' ``kv_len`` filled positions in every attention layer
+    and each Mamba layer's state and conv window, read and written.
+    Beside it, the dense formulation's bytes: every padded expert, as the
+    step's ``bmm`` over the capacity buffers (and JAX's ``einsum``) reads
+    them."""
+    from repro_torch.tree import named_leaves
+
+    total = experts = 0
+    for name, t in named_leaves(cparams):
+        if "embed" in name and "head" in cparams:
+            continue
+        nbytes = t.numel() * t.element_size()
+        total += nbytes
+        if name.endswith(("['moe']['wi']", "['moe']['wg']",
+                          "['moe']['wo']")):
+            experts += nbytes
+    n_moe = n_moe_layers(cfg)
+    per_expert = experts / (n_moe * cfg.n_experts_padded) if n_moe else 0
+    cache = 0
+    for i in range(cfg.n_layers):
+        if cfg.layer_spec(i).mixer == "attn":
+            cache += 2 * B * kv_len * cfg.n_kv_heads * cfg.head_dim
+        else:
+            cache += 2 * B * cfg.d_inner_ * (cfg.ssm_state
+                                             + cfg.conv_width - 1)
+    cache *= cache_bytes
+    return {"decode_step_bytes": total - experts + routed * per_expert
+            + cache,
+            "decode_step_routed_experts": routed,
+            "decode_step_cache_bytes": cache,
+            "decode_step_dense_einsum_bytes": total + cache}
+
+
+def decode_bound(nbytes: dict, B: int) -> dict:
+    s = nbytes["decode_step_bytes"] / PEAK_BYTES
+    return {"decode_step_bound_s": s, "decode_bound_tokens_per_s": B / s,
+            "decode_dense_einsum_tokens_per_s":
+                B * PEAK_BYTES / nbytes["decode_step_dense_einsum_bytes"]}
+
+
+def lm_moe_requests(torch, dev, arch: str, label: str, windows: dict,
+                    recs: dict, profile: bool) -> None:
+    """moe-qwen / moe-deepseek: a 2 x 8192 full-cache scoring prefill (K9
+    once an attention layer) with its route checks (f32 on a 2-layer cut),
+    then ``greedy_decode`` 4 x 1024 + 32 (no kernel: the cache is S + 32)
+    and the MoE decode-step gate."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import ops
+
+    cfg = ARCHS[arch]
+    cut = {}
+    if arch in LM_DEPTH:
+        cut["n_layers"] = (f"{cfg.n_layers} -> {LM_DEPTH[arch]}: "
+                           + LM_DEPTH_WHY[arch])
+        cfg = dataclasses.replace(cfg, n_layers=LM_DEPTH[arch])
+    tol = {"f32": LM_F32_TOL, "bf16_max_abs": LM_BF16_MAX_ABS[cfg.name]}
+    cp, gen = lm_served_weights(torch, dev, cfg)
+    kern = lm_models(torch, cfg, torch.bfloat16)["kernel"]
+    tokens = torch.randint(0, cfg.vocab, (LM_SCORE["batch"],
+                                          LM_SCORE["prompt"]),
+                           generator=gen, device=dev)
+    rec = Recorder(ops, "flash_attention_cuda", keep=1)
+    logits, caches, secs, counts, peak = lm_prefill(torch, kern, cp, tokens)
+    rec.restore()
+    recs[label] = rec.calls[0]
+    del rec, caches
+    windows[f"lm_{label}_score"] = counts
+    check_launches(f"{label} scoring prefill", counts,
+                   prefill_launches(cfg, torch.bfloat16))
+    check(logits.shape == (LM_SCORE["batch"], cfg.vocab), "scoring logits")
+    cfg32, p32 = lm_f32_cut(torch, dev, cfg, LM_F32_LAYERS)
+    route = lm_route_checks(torch, f"{label} scoring", cfg, p32, cp, tokens,
+                            logits, cfg32=cfg32, noise=True)
+    lm_request_line(f"{label} score", prefill_line(
+        cfg, {"tokens": tokens}, secs, counts, peak, route, tol,
+        "LM.prefill(params, {tokens}), full cache",
+        {**cut, "batch": "prefill_32k's 32 -> 2", "prompt": "32768 -> 8192",
+         "f32_route_check": f"depth {cfg.n_layers} -> {LM_F32_LAYERS} at "
+                            "full width (qwen2-moe-a2.7b's f32 tree, 60.6 "
+                            "GB, and its bf16 copy exceed 80 GB)"}))
+    if profile:
+        profile_call(torch, lambda: kern.prefill(cp, {"tokens": tokens}),
+                     f"{cfg.name} scoring prefill", top=20)
+    del logits, tokens
+
+    d = LM_MOE_DECODE
+    prompt = torch.randint(0, cfg.vocab, (d["batch"], d["prompt"]),
+                           generator=gen, device=dev)
+    toks, tm, counts, peak = lm_greedy(torch, kern, cp, prompt, d["new"],
+                                       cfg.vocab)
+    windows[f"lm_{label}_decode"] = counts
+    check_launches(f"{label} greedy_decode", counts, {})
+    steps = lm_moe_step_check(torch, label, "bf16", cfg, cp, prompt)
+    steps.update(lm_moe_step_check(torch, label, "f32", cfg32, p32, prompt))
+    del p32
+    nbytes = decode_bytes(cp, cfg, d["batch"], d["prompt"] + d["new"] / 2,
+                          decode_routed_experts(torch, kern, cp, prompt,
+                                                toks))
+    lm_request_line(f"{label} greedy_decode", {
+        "model": cfg.name, "n_layers": cfg.n_layers, "B": d["batch"],
+        "prompt": d["prompt"], "new_tokens": d["new"],
+        "call": "greedy_decode", **tm,
+        "prompt_tokens_per_s": prompt.numel() / tm["prefill_s"],
+        "decode_tokens_per_s": d["batch"] * (d["new"] - 1) / tm["decode_s"],
+        **nbytes, **decode_bound(nbytes, d["batch"]),
+        "launches": {k: v for k, v in counts.items() if v},
+        "max_memory_allocated": peak, **steps, "tol": tol,
+        "tokens_row0": toks[0].tolist(), "reduced": cut})
+    if profile:
+        _, caches, _ = kern.prefill(cp, {"tokens": prompt})
+        caches = grow_caches(torch, caches, 1)
+        tok = toks[:, :1]
+        profile_call(torch, lambda: kern.decode_step(cp, caches, tok,
+                                                     d["prompt"]),
+                     f"{cfg.name} decode step (B = {d['batch']})", top=20)
+        del caches
+    del kern, cp, prompt, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def vlm_batch(torch, gen, cfg, dev, B: int, S: int, patches: int,
+              grid: int) -> dict:
+    """Tokens, ``patches`` patch embeddings over the first positions (the
+    vision frontend is a stub, as in the JAX package: random embeddings
+    at the token embeddings' scale) and the (B, 3, S) M-RoPE streams: h
+    and w the patch's row and column in a ``grid`` x ``grid`` image, and
+    for text h = w = t.  t is every token's sequence index: K9 masks by
+    row index and the plain route by the t stream (as the JAX package's
+    two routes do), so the routes compute one function only when t is the
+    row index."""
+    t = torch.arange(S, device=dev)
+    h, w = t.clone(), t.clone()
+    idx = torch.arange(patches, device=dev)
+    h[:patches], w[:patches] = idx // grid, idx % grid
+    return {
+        "tokens": torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                                device=dev),
+        "vision_embeds": 0.02 * torch.randn(B, patches, cfg.d_model,
+                                            generator=gen, device=dev),
+        "positions": torch.stack([t, h, w]).expand(B, 3, S)}
+
+
+def run_lm_families(torch, dev, profile: bool):
+    """The LM requests of the MoE, hybrid, VLM and audio families, each in
+    its own launch-count windows: moe-qwen (qwen2-moe-a2.7b unmodified),
+    moe-deepseek (deepseek-moe-16b at 4 layers), hybrid-jamba
+    (jamba-1.5-large-398b at full width and 5 layers), audio-hubert
+    (hubert-xlarge unmodified) and vlm-qwen2vl (qwen2-vl-72b at 2
+    layers).  Returns the windows and the recorded K9 inputs (layer 0 of
+    qwen2-moe-a2.7b's and of hubert-xlarge's prefills)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import ops
+    from repro_torch.serve import DecodeSession
+
+    windows, recs = {}, {}
+    for arch, label in (("qwen2-moe-a2.7b", "moe-qwen"),
+                        ("deepseek-moe-16b", "moe-deepseek")):
+        lm_moe_requests(torch, dev, arch, label, windows, recs, profile)
+
+    # ---- hybrid-jamba: full width, layers 0-4; greedy_decode, prefill ---
+    arch = "jamba-1.5-large-398b"
+    cfg = dataclasses.replace(ARCHS[arch], n_layers=LM_DEPTH[arch])
+    tol = {"f32": LM_F32_TOL, "bf16_max_abs": LM_BF16_MAX_ABS[cfg.name]}
+    cut = {"n_layers": f"72 -> {cfg.n_layers}: " + LM_DEPTH_WHY[arch],
+           "f32_route_check": f"depth {cfg.n_layers} -> {LM_F32_LAYERS} "
+                              "(Mamba + MLP, Mamba + MoE) at full width, "
+                              "drawn after the served tree is freed (48.7 "
+                              "GB in f32)"}
+    cp, gen = lm_served_weights(torch, dev, cfg)
+    kern = lm_models(torch, cfg, torch.bfloat16)["kernel"]
+    j = LM_JAMBA
+    prompt = torch.randint(0, cfg.vocab, (j["batch"], j["prompt"]),
+                           generator=gen, device=dev)
+    toks, tm, counts, peak = lm_greedy(torch, kern, cp, prompt, j["new"],
+                                       cfg.vocab)
+    windows["lm_hybrid-jamba_decode"] = counts
+    decode_counts = {k: v for k, v in counts.items() if v}
+    # the prefill into S + 16 runs the plain attention; K10 a Mamba layer
+    check_launches("hybrid-jamba greedy_decode", counts,
+                   {"mamba_scan": n_kernel_layers(cfg, "mamba_scan")})
+    nbytes = decode_bytes(cp, cfg, j["batch"], j["prompt"] + j["new"] / 2,
+                          decode_routed_experts(torch, kern, cp, prompt,
+                                                toks))
+    logits, caches, secs, counts, ppeak = lm_prefill(torch, kern, cp, prompt)
+    del caches
+    windows["lm_hybrid-jamba_prefill"] = counts
+    check_launches("hybrid-jamba full-cache prefill", counts,
+                   prefill_launches(cfg, torch.bfloat16))
+    route = lm_bf16_route_checks(torch, "hybrid-jamba", cfg, cp,
+                                 {"tokens": prompt}, logits, noise=True)
+    steps = lm_moe_step_check(torch, "hybrid-jamba", "bf16", cfg, cp, prompt)
+    del kern, cp, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg32, p32 = lm_f32_cut(torch, dev, cfg, LM_F32_LAYERS)
+    route.update(lm_f32_route_check(torch, "hybrid-jamba", cfg32, p32,
+                                    {"tokens": prompt}))
+    steps.update(lm_moe_step_check(torch, "hybrid-jamba", "f32", cfg32, p32,
+                                   prompt))
+    del p32
+    lm_request_line("hybrid-jamba greedy_decode", {
+        "model": cfg.name, "n_layers": cfg.n_layers, "B": j["batch"],
+        "prompt": j["prompt"], "new_tokens": j["new"],
+        "call": "greedy_decode", **tm,
+        "prompt_tokens_per_s": prompt.numel() / tm["prefill_s"],
+        "decode_tokens_per_s": j["batch"] * (j["new"] - 1) / tm["decode_s"],
+        **nbytes, **decode_bound(nbytes, j["batch"]),
+        "launches": decode_counts, "max_memory_allocated": peak, **steps,
+        "tol": tol, "tokens_row0": toks[0].tolist(), "reduced": cut})
+    lm_request_line("hybrid-jamba prefill", prefill_line(
+        cfg, {"tokens": prompt}, secs, counts, ppeak, route, tol,
+        "LM.prefill(params, {tokens}), full cache, the same prompts", cut))
+    del prompt, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- audio-hubert: unmodified, 2 x 8192 frames, non-causal ---------
+    cfg, params, cp, gen = lm_weights(torch, dev, ARCHS["hubert-xlarge"])
+    tol = {"f32": LM_F32_TOL, "bf16_max_abs": LM_BF16_MAX_ABS[cfg.name]}
+    kern = lm_models(torch, cfg, torch.bfloat16)["kernel"]
+    a = LM_AUDIO
+    batch = {"frames": torch.randn(a["batch"], a["frames"], cfg.d_model,
+                                   generator=gen, device=dev)}
+    rec = Recorder(ops, "flash_attention_cuda", keep=1)
+    logits, caches, secs, counts, peak = lm_prefill(torch, kern, cp, batch)
+    rec.restore()
+    recs["audio-hubert"] = rec.calls[0]
+    del rec, caches
+    windows["lm_audio-hubert"] = counts
+    check_launches("audio-hubert prefill", counts,
+                   prefill_launches(cfg, torch.bfloat16))
+    check(logits.shape == (a["batch"], cfg.vocab), "hubert logits")
+    route = lm_route_checks(torch, "audio-hubert", cfg, params, cp, batch,
+                            logits, noise=True)
+    try:
+        kern.decode_step(cp, [], torch.zeros(1, 1, dtype=torch.long,
+                                             device=dev), 0)
+        no_decode = False
+    except ValueError:
+        no_decode = True
+    check(no_decode, "hubert-xlarge: decode_step did not refuse an "
+          "encoder-only model")
+    lm_request_line("audio-hubert prefill", prefill_line(
+        cfg, batch, secs, counts, peak, route, tol,
+        "LM.prefill(params, {frames}), full cache, non-causal",
+        {"batch": "2 sequences", "frames": "8192 a sequence (the repo's "
+         "prefill_32k cut as for the text models)"}))
+    if profile:
+        profile_call(torch, lambda: kern.prefill(cp, batch),
+                     "hubert-xlarge prefill")
+    del kern, params, cp, batch, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- vlm-qwen2vl: 2 layers, vision prefix, M-RoPE ------------------
+    v = LM_VLM
+    cfg = dataclasses.replace(ARCHS["qwen2-vl-72b"],
+                              n_layers=LM_DEPTH["qwen2-vl-72b"])
+    cut = {"n_layers": f"80 -> {cfg.n_layers}: "
+                       + LM_DEPTH_WHY["qwen2-vl-72b"],
+           "batch": "prefill_32k's 32 -> 2", "prompt": "32768 -> 8192"}
+    cfg, params, cp, gen = lm_weights(torch, dev, cfg)
+    tol = {"f32": LM_F32_TOL, "bf16_max_abs": LM_BF16_MAX_ABS[cfg.name]}
+    kern = lm_models(torch, cfg, torch.bfloat16)["kernel"]
+    batch = vlm_batch(torch, gen, cfg, dev, v["batch"], v["prompt"],
+                      v["patches"], v["grid"])
+    logits, caches, secs, counts, peak = lm_prefill(torch, kern, cp, batch)
+    del caches
+    windows["lm_vlm-qwen2vl_prefill"] = counts
+    check_launches("vlm-qwen2vl prefill", counts,
+                   prefill_launches(cfg, torch.bfloat16))
+    route = lm_route_checks(torch, "vlm-qwen2vl", cfg, params, cp, batch,
+                            logits, noise=True)
+    lm_request_line("vlm-qwen2vl prefill", prefill_line(
+        cfg, batch, secs, counts, peak, route, tol,
+        "LM.prefill(params, {tokens, vision_embeds, positions}), full "
+        "cache", cut))
+    # 32 DecodeSession steps from a prefill into S + 32 (no K9: not a
+    # full cache), each at M-RoPE positions (B, 3, 1) = the cache index
+    from repro_torch.kernels import _build
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    sess = DecodeSession(kern, cp, max_len=v["prompt"] + v["steps"])
+    out = sess.prefill(batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    toks = []
+    for _ in range(v["steps"]):
+        toks.append(torch.argmax(out, -1)[:, None])
+        out = sess.step(toks[-1])
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = _build.counts()
+    windows["lm_vlm-qwen2vl_decode"] = counts
+    check_launches("vlm-qwen2vl DecodeSession", counts, {})
+    check(torch.isfinite(out).all().item(), "vlm-qwen2vl: non-finite step")
+    toks = torch.cat(toks, dim=1)
+    check(bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+          "vlm-qwen2vl: a token outside [0, vocab)")
+    peak = torch.cuda.max_memory_allocated()
+    del sess, out
+    steps = lm_step_checks(torch, "vlm-qwen2vl", cfg, params, cp, batch,
+                           "flash_attention", 0, "flash_attention_f32")
+    lm_request_line("vlm-qwen2vl DecodeSession", {
+        "model": cfg.name, "n_layers": cfg.n_layers, "B": v["batch"],
+        "prompt": v["prompt"], "new_tokens": v["steps"],
+        "call": f"DecodeSession(max_len=S + {v['steps']}).prefill, then "
+                f"{v['steps']} steps",
+        "prefill_s": t1 - t0, "decode_s": t2 - t1,
+        "prompt_tokens_per_s": v["batch"] * v["prompt"] / (t1 - t0),
+        "decode_tokens_per_s": v["batch"] * v["steps"] / (t2 - t1),
+        "launches": {}, "max_memory_allocated": peak, **steps, "tol": tol,
+        "tokens_row0": toks[0].tolist(), "reduced": cut})
+    del kern, params, cp, batch, logits, toks
     gc.collect()
     torch.cuda.empty_cache()
     return windows, recs
@@ -3626,6 +4367,45 @@ def lm_kernel_phases(torch, dev, windows, lm_recs, ptxas):
     del qft, kft, vft
     del qf, kf, vf
 
+    # ---- K9 at the MoE and audio requests' layers ------------------------
+    # qwen2-moe-a2.7b's attention (MHA, D = 128, causal, no cap) and
+    # hubert-xlarge's (MHA, D = 80, non-causal), layer 0 of each scoring
+    # prefill, in bf16, beside SDPA on the same inputs
+    def k9_row(label, args, what):
+        q9, k9_, v9, c9, w9, cap9 = args
+        r = k9_compare(f"flash_attention ({label})",
+                       flash_attention_cuda(*args), ref.flash_attention_ref(
+                           *args))
+        bms9, by9 = k9_bound(q9, k9_, c9, w9)
+        qt9, kt9, vt9 = (x.transpose(1, 2) for x in (q9, k9_, v9))
+        return dict(
+            name=f"flash_attention_{label}", route="cuda",
+            source="src/repro_torch/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:119",
+            count="flash_attention", **path_launches("flash_attention"),
+            max_abs_err=r["max_abs_err"],
+            ms=time_ms(lambda: flash_attention_cuda(*args), 5),
+            plain_ms=time_ms(lambda: ref.flash_attention_ref(*args), 3,
+                             warmup=1),
+            bound_ms=bms9, bound_by=by9,
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                qt9, kt9, vt9, is_causal=c9), 5),
+            library_call=f"F.scaled_dot_product_attention(is_causal={c9}) "
+                         "at the same inputs",
+            ref_rms=r["ref_rms"], rel_rms_err=r["rel_rms_err"],
+            shape=f"B={q9.shape[0]} S={q9.shape[1]} Hq={q9.shape[2]} "
+                  f"Hkv={k9_.shape[2]} D={q9.shape[3]} {q9.dtype} "
+                  f"{'causal' if c9 else 'non-causal'} window={w9} "
+                  f"cap={cap9} ({what})",
+            form="bf16: tensor cores (wgmma), K/V by TMA",
+            bound_peak="bf16 dense tensor 989 TFLOP/s, HBM 3.35 TB/s",
+            tol=K9_TOL, bf16_rel_rms_tol=K9_BF16_REL_RMS)
+
+    out.append(k9_row("moe_qwen", lm_recs["moe-qwen"],
+                      "qwen2-moe-a2.7b layer 0, scoring prefill"))
+    out.append(k9_row("hubert", lm_recs["audio-hubert"],
+                      "hubert-xlarge layer 0, prefill of 2 x 8192 frames"))
+
     # ---- K9's f32-arithmetic form past D = 256 (f32 or bf16 inputs) ------
     # No configuration reaches D > 256 (gemma2-2b's d_head 256 is the
     # largest): a causal prefill of gemma2-2b's geometry otherwise (B = 1,
@@ -3844,8 +4624,10 @@ def main() -> int:
     def phase(name: str) -> None:
         phases[name] = round(time.perf_counter() - t_start, 1)
 
+    profile = "--profile" in sys.argv[1:]
+    lm_only = "--lm-only" in sys.argv[1:]
     paper_tmp = Path(tempfile.mkdtemp(prefix="paper_data_"))
-    paper_proc = start_paper_data(paper_tmp)
+    paper_proc = None if lm_only else start_paper_data(paper_tmp)
     try:
         line = card_line()
         print(line)
@@ -3868,6 +4650,14 @@ def main() -> int:
         print("ptxas: " + json.dumps(ptxas))
         phase("build")
         dev = torch.device("cuda:0")
+        if lm_only:
+            run_lm_phase(torch, dev, profile)
+            phase("lm phase")
+            run_lm_families(torch, dev, profile)
+            phase("lm families")
+            print("phase seconds (cumulative): " + json.dumps(phases))
+            print("chip_smoke --lm-only: every LM request passed its checks")
+            return 0
         ds, index, cfg, res, launches, recs = run_main_path(torch, dev)
         for kname in ("envelope", "lb_enhanced", "lb_enhanced_pairwise",
                       "dtw_band"):
@@ -3883,16 +4673,18 @@ def main() -> int:
         lg_ds, lg_index, lg_cfg, lg_recs, lg_launches = run_long_path(
             torch, dev)
         phase("long path")
-        profile = "--profile" in sys.argv[1:]
-        if profile:
-            profile_search(torch, ds, index, cfg, "main path")
-            profile_search(torch, sk_ds, sk_index, sk_cfg, "sketch path")
-            profile_search(torch, lg_ds, lg_index, lg_cfg, "long path")
+        # --profile: each path's warm search, profiled after the kernel
+        # phases' last device_ms (a profile of a whole search before them
+        # left their short profiler sessions seeing no kernel)
+        profiles = [(ds, index, cfg, "main path"),
+                    (sk_ds, sk_index, sk_cfg, "sketch path"),
+                    (lg_ds, lg_index, lg_cfg, "long path")] \
+            if profile else None
         wd_launches, wd_recs = run_wide_path(
-            torch, dev, {"main": ds, "long": lg_ds}, profile)
+            torch, dev, {"main": ds, "long": lg_ds}, profiles)
         phase("wide path")
         dn_launches, dn_recs, dn_res = run_dense_path(
-            torch, dev, {"main": ds, "sketch": sk_ds}, sk_cfg, profile)
+            torch, dev, {"main": ds, "sketch": sk_ds}, sk_cfg, profiles)
         phase("dense path")
         windows = {"main": launches, "sketch": sk_launches,
                    "long": lg_launches, "wide": wd_launches,
@@ -3905,6 +4697,11 @@ def main() -> int:
                                 sk_ds.x_test, index, ds.x_test, lg_recs,
                                 wd_recs, dn_recs, ptxas)
         phase("kernel phases")
+        if profile:
+            for args in profiles:
+                profile_search(torch, *args)
+            del profiles, args
+            phase("search profiles")
         # the LM phase needs the card's memory: falcon-mamba-7b's f32
         # weights and bf16 copy are 43.6 GB
         main_ds = ds
@@ -3912,12 +4709,18 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         lm_windows, lm_recs = run_lm_phase(torch, dev, profile)
+        phase("lm phase")
+        fam_windows, fam_recs = run_lm_families(torch, dev, profile)
+        lm_windows.update(fam_windows)
+        lm_recs.update(fam_recs)
+        del fam_recs
+        phase("lm families")
         kernels += lm_kernel_phases(torch, dev, lm_windows, lm_recs,
                                     ptxas)
         del lm_recs
         gc.collect()
         torch.cuda.empty_cache()
-        phase("lm phase")
+        phase("lm kernels")
         tr_launches = run_train_path(torch, dev, profile)
         for rec in kernels:
             if rec["name"] in LM_KERNELS:
@@ -3973,9 +4776,10 @@ def main() -> int:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
     finally:
-        if paper_proc.poll() is None:
-            paper_proc.kill()
-        paper_proc.wait()
+        if paper_proc is not None:
+            if paper_proc.poll() is None:
+                paper_proc.kill()
+            paper_proc.wait()
         shutil.rmtree(paper_tmp, ignore_errors=True)
         if dist.is_initialized():
             dist.destroy_process_group()

@@ -7,7 +7,9 @@ without a cache, and a prefill that fills the whole cache (``S ==
 Smax``), where attention over the cache is self-attention.  Every other
 call (a prefill into a longer cache, every decode step) runs the plain
 online-softmax attention over the cache with the unwritten slots masked.
-M-RoPE is not ported yet (ROADMAP Queue 1 item 3).
+With ``mrope_sections`` (Qwen2-VL) q and k are rotated by M-RoPE's three
+position streams and the masks read the temporal stream, as in JAX; K9's
+masks read implicit row positions, as JAX's Pallas kernel does.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import flash_attention_ref
-from repro_torch.models.layers import apply_rope, lecun_normal
+from repro_torch.models.layers import apply_mrope, apply_rope, lecun_normal
 
 Tensor = torch.Tensor
 
@@ -41,7 +43,7 @@ def attn_init(gen: torch.Generator, device, d_model: int, n_heads: int,
 def attn_apply(
     p: dict[str, Tensor],
     x: Tensor,                      # (B, S, d_model)
-    positions: Tensor,              # (B, S)
+    positions: Tensor,              # (B, S), or (B, 3, S) with M-RoPE
     *,
     n_heads: int,
     n_kv_heads: int,
@@ -50,6 +52,7 @@ def attn_apply(
     window: int | None = None,
     score_cap: float | None = None,
     rope_theta: float = 10000.0,
+    mrope_sections: tuple[int, ...] | None = None,
     cache: dict[str, Tensor] | None = None,
     cache_index: int | None = None,
     kv_chunk: int = 1024,
@@ -77,8 +80,13 @@ def attn_apply(
     q = q.reshape(B, S, n_heads, d_head)
     k = k.reshape(B, S, n_kv_heads, d_head)
     v = v.reshape(B, S, n_kv_heads, d_head)
-    q = apply_rope(q, positions, rope_theta)
-    k = apply_rope(k, positions, rope_theta)
+    if mrope_sections is not None:
+        q = apply_mrope(q, positions, mrope_sections, rope_theta)
+        k = apply_mrope(k, positions, mrope_sections, rope_theta)
+        positions = positions[:, 0, :]
+    else:
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, positions, rope_theta)
 
     if cache is None:
         if impl == "kernel":

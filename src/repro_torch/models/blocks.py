@@ -2,11 +2,11 @@
 ``repro.models.blocks``).
 
 A block = pre-norm mixer (attention or Mamba) + residual, then pre-norm
-dense MLP + residual.  Routing kept from the JAX package
-(``blocks.py:83,91``): a call with ``S == 1`` (every decode step) runs
-the plain ``"chunked"`` attention and ``"scan"`` paths whatever the
-model's impl, so no kernel runs in a decode step.  MoE layers are not
-ported yet (ROADMAP Queue 1 item 2); ``LM`` refuses them up front.
+FFN (routed MoE, else a dense MLP where ``d_ff > 0``) + residual.
+Routing kept from the JAX package (``blocks.py:83,91``): a call with
+``S == 1`` (every decode step) runs the plain ``"chunked"`` attention and
+``"scan"`` paths whatever the model's impl, so no kernel runs in a decode
+step.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.models.attention import attn_apply, attn_init, init_cache
 from repro_torch.models.layers import mlp_apply, mlp_init, rms_norm
 from repro_torch.models.mamba import init_mamba_cache, mamba_apply, mamba_init
+from repro_torch.models.moe import moe_apply, moe_init
 
 Tensor = torch.Tensor
 
@@ -34,10 +35,11 @@ def layer_init(gen: torch.Generator, device, cfg: ArchConfig,
         p["mamba"] = mamba_init(gen, device, cfg.d_model, cfg.d_inner_,
                                 cfg.ssm_state, cfg.dt_rank_, cfg.conv_width)
     if spec.moe:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported yet (ROADMAP Queue 1 "
-            "item 2)")
-    if cfg.d_ff > 0:
+        p["norm2"] = torch.zeros(cfg.d_model, device=device)
+        p["moe"] = moe_init(gen, device, cfg.d_model,
+                            cfg.d_expert or cfg.d_ff, cfg.n_experts_padded,
+                            cfg.n_shared_experts, cfg.act)
+    elif cfg.d_ff > 0:
         p["norm2"] = torch.zeros(cfg.d_model, device=device)
         p["mlp"] = mlp_init(gen, device, cfg.d_model, cfg.d_ff, cfg.act)
     return p
@@ -56,8 +58,11 @@ def layer_apply(
     mamba_chunk: int = 256,
     ssm_impl: str = "scan",
     attn_impl: str = "chunked",
-) -> tuple[Tensor, dict[str, Tensor] | None]:
-    """Apply one block.  Returns (x, the layer's cache or None)."""
+    with_aux: bool = False,
+) -> tuple[Tensor, dict[str, Tensor] | None, Tensor | None]:
+    """Apply one block.  Returns (x, the layer's cache or None, the MoE
+    aux loss: a 0-d f32 tensor for an MoE layer with ``with_aux``, else
+    None)."""
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if spec.mixer == "attn":
         out, new_cache = attn_apply(
@@ -65,7 +70,8 @@ def layer_apply(
             n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
             d_head=cfg.head_dim, causal=cfg.causal, window=spec.window,
             score_cap=cfg.attn_softcap, rope_theta=cfg.rope_theta,
-            cache=cache, cache_index=cache_index, kv_chunk=kv_chunk,
+            mrope_sections=cfg.mrope_sections, cache=cache,
+            cache_index=cache_index, kv_chunk=kv_chunk,
             impl=attn_impl if x.shape[1] > 1 else "chunked",
         )
     else:
@@ -75,10 +81,17 @@ def layer_apply(
             impl=ssm_impl if x.shape[1] > 1 else "scan",
         )
     x = x + out
-    if cfg.d_ff > 0:
+    aux = None
+    if spec.moe:
+        h = rms_norm(x, p["norm2"], cfg.norm_eps)
+        out, aux = moe_apply(p["moe"], h, top_k=cfg.top_k,
+                             n_real=cfg.n_experts, act=cfg.act,
+                             with_aux=with_aux)
+        x = x + out
+    elif cfg.d_ff > 0:
         h = rms_norm(x, p["norm2"], cfg.norm_eps)
         x = x + mlp_apply(p["mlp"], h, cfg.act)
-    return x, new_cache
+    return x, new_cache, aux
 
 
 def init_layer_cache(cfg: ArchConfig, spec: LayerSpec, batch: int,

@@ -19,7 +19,6 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.model import check_supported
 
 
 def _to_torch(tree: Any, device: torch.device) -> Any:
@@ -54,8 +53,8 @@ def lm_params_from_numpy(cfg: ArchConfig, tree: dict[str, Any],
                          device=None) -> dict[str, Any]:
     """The JAX ``LM.init`` tree (as numpy) -> the port's parameter dict on
     ``device`` (default CUDA)."""
-    check_supported(cfg)
-    out = {k: tree[k] for k in ("final_norm", "embed", "head") if k in tree}
+    out = {k: tree[k] for k in ("final_norm", "embed", "in_norm", "head")
+           if k in tree}
     out["layers"] = unstack_layers(cfg, tree["prelude"], tree["scan"])
     return _to_torch(out, resolve_device(device))
 

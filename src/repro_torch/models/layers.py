@@ -10,8 +10,7 @@ Initialisers draw from an explicit ``torch.Generator`` with the JAX
 initialisers' distributions (``lecun_normal`` is a normal truncated to
 two standard deviations, rescaled to unit variance over ``fan_in``);
 the numbers differ from JAX's, so the tests carry JAX's parameters over
-with ``models.convert``.  ``apply_mrope`` is not ported yet (ROADMAP
-Queue 1 item 3).
+with ``models.convert``.
 """
 
 from __future__ import annotations
@@ -31,9 +30,10 @@ _TRUNC_STD = 0.87962566103423978
 
 def lecun_normal(shape: tuple[int, ...], generator: torch.Generator,
                  device: torch.device) -> Tensor:
-    """``jax.nn.initializers.lecun_normal()`` for a ``(fan_in, ...)``
-    matrix: variance ``1 / fan_in``, truncated at two deviations."""
-    std = math.sqrt(1.0 / shape[-2]) / _TRUNC_STD
+    """``jax.nn.initializers.lecun_normal()``: variance ``1 / fan_in``,
+    truncated at two deviations.  As in JAX, ``fan_in`` is every axis but
+    the last (a stack of experts ``(E, d, f)`` has ``fan_in = E d``)."""
+    std = math.sqrt(shape[-1] / math.prod(shape)) / _TRUNC_STD
     t = torch.empty(shape, dtype=torch.float32, device=device)
     return torch.nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std,
                                        generator=generator)
@@ -90,6 +90,38 @@ def apply_rope(x: Tensor, positions: Tensor, theta: float = 10000.0) -> Tensor:
     """
     freqs = rope_freqs(x.shape[-1], theta, x.device)            # (D/2,)
     ang = positions[..., None].float() * freqs                  # (B, S, D/2)
+    return _rotate(x, ang)
+
+
+def apply_mrope(x: Tensor, positions: Tensor, sections: tuple[int, ...],
+                theta: float = 10000.0) -> Tensor:
+    """Multimodal rotary embedding (Qwen2-VL): the head dim's frequency
+    bands are split into (temporal, height, width) sections, each rotated
+    by its own position stream.
+
+    Args:
+      x: (B, S, H, D).
+      positions: (B, 3, S) integer positions (t, h, w); text tokens carry
+        t == h == w, where M-RoPE is 1-D RoPE.
+      sections: the split of D/2 into the three streams' bands (sums to
+        D/2).
+    """
+    d_half = x.shape[-1] // 2
+    if sum(sections) != d_half:
+        raise ValueError(f"M-RoPE sections {sections} do not sum to D/2 = "
+                         f"{d_half}")
+    freqs = rope_freqs(x.shape[-1], theta, x.device)            # (D/2,)
+    ang_tri = positions[..., None].float() * freqs         # (B, 3, S, D/2)
+    parts, start = [], 0
+    for k, sec in enumerate(sections):
+        parts.append(ang_tri[:, k, :, start:start + sec])
+        start += sec
+    return _rotate(x, torch.cat(parts, dim=-1))                 # (B, S, D/2)
+
+
+def _rotate(x: Tensor, ang: Tensor) -> Tensor:
+    """Rotate the split halves of ``x`` (B, S, H, D) by angles (B, S, D/2),
+    in f32, cast back."""
     sin = torch.sin(ang)[:, :, None, :]
     cos = torch.cos(ang)[:, :, None, :]
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)

@@ -14,9 +14,11 @@ the backward recomputes it instead of keeping its activations.
 route through the K9 and K10 ops, differentiable through their autograd
 Functions; ``"chunked"`` and ``"scan"`` run the plain versions.
 
-Configurations with layers this slice does not have raise
-``NotImplementedError`` naming the ROADMAP item (MoE, M-RoPE/vision
-prefix, audio ``frames`` inputs); nothing falls back.
+Inputs, as in the JAX package: ``tokens`` (B, S); for an encoder over
+frames (``embed_inputs=False``, hubert) ``frames`` (B, S, d), normed by
+``in_norm``; for a VLM, ``vision_embeds`` (B, P, d) overwrite the first P
+token embeddings and ``positions`` (B, 3, S) carry M-RoPE's streams.  The
+MoE layers' aux losses sum over the stack into ``loss_fn``'s loss.
 """
 
 from __future__ import annotations
@@ -42,20 +44,10 @@ from repro_torch.models.layers import (
 Tensor = torch.Tensor
 
 
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise for a configuration with layers this slice does not port."""
-    if any(cfg.layer_spec(i).moe for i in range(cfg.n_layers)):
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported yet (ROADMAP Queue 1 "
-            "item 2)")
-    if cfg.mrope_sections is not None or cfg.vision_prefix:
-        raise NotImplementedError(
-            f"{cfg.name}: M-RoPE and vision-prefix inputs are not ported "
-            "yet (ROADMAP Queue 1 item 3)")
-    if not cfg.embed_inputs:
-        raise NotImplementedError(
-            f"{cfg.name}: audio frame inputs are not ported yet (ROADMAP "
-            "Queue 1 item 3)")
+def _cast_leaf(t: Tensor, dtype: torch.dtype) -> Tensor:
+    if t.dim() >= 2 and t.dtype == torch.float32:
+        return t.to(dtype)
+    return t
 
 
 def _cast_tree(tree: Any, dtype: torch.dtype) -> Any:
@@ -63,8 +55,16 @@ def _cast_tree(tree: Any, dtype: torch.dtype) -> Any:
         return {k: _cast_tree(v, dtype) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_cast_tree(v, dtype) for v in tree]
-    if tree.dim() >= 2 and tree.dtype == torch.float32:
-        return tree.to(dtype)
+    return _cast_leaf(tree, dtype)
+
+
+def _cast_tree_(tree: dict[str, Any], dtype: torch.dtype) -> dict[str, Any]:
+    """``_cast_tree`` in place, a leaf at a time: each f32 leaf is freed
+    as its cast replaces it, so the tree's f32 and cast copies are never
+    whole together."""
+    for k, v in tree.items():
+        tree[k] = (_cast_tree_(v, dtype) if isinstance(v, dict)
+                   else _cast_leaf(v, dtype))
     return tree
 
 
@@ -80,7 +80,6 @@ class LM(nn.Module):
                  ssm_impl: str = "scan", remat: bool = True,
                  ce_chunk: int = 512):
         super().__init__()
-        check_supported(cfg)
         if attn_impl not in ("chunked", "kernel"):
             raise ValueError(f"attn_impl {attn_impl!r}: 'chunked' or "
                              "'kernel'")
@@ -104,48 +103,95 @@ class LM(nn.Module):
 
     # ------------------------------------------------------------------
     def init(self, generator: torch.Generator | None = None,
-             device=None) -> dict[str, Any]:
+             device=None, dtype: torch.dtype | None = None
+             ) -> dict[str, Any]:
         """Random f32 parameters drawn from ``generator`` on ``device``
-        (default: the generator's device, else CUDA)."""
+        (default: the generator's device, else CUDA).  With ``dtype``, the
+        same draws come back as ``compute_params`` in ``dtype`` would make
+        them, each part cast as soon as it is drawn: the f32 tree is never
+        whole, so a model whose f32 weights and compute copy do not fit
+        the device together can still be served."""
         if device is None and generator is not None:
             device = generator.device
         dev = resolve_device(device)
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
+
+        def part(x):
+            if dtype is None:
+                return x
+            return (_cast_tree_(x, dtype) if isinstance(x, dict)
+                    else _cast_leaf(x, dtype))
+
         cfg = self.cfg
         params: dict[str, Any] = {
-            "final_norm": torch.zeros(cfg.d_model, device=dev),
-            "embed": embed_init(generator, dev, cfg.vocab, cfg.d_model),
-            "layers": [layer_init(generator, dev, cfg, cfg.layer_spec(i))
-                       for i in range(cfg.n_layers)],
-        }
-        if not cfg.tie_embeddings:
-            params["head"] = lecun_normal((cfg.d_model, cfg.vocab), generator,
-                                          dev)
+            "final_norm": torch.zeros(cfg.d_model, device=dev)}
+        if cfg.embed_inputs:
+            params["embed"] = part(embed_init(generator, dev, cfg.vocab,
+                                              cfg.d_model))
+        else:
+            params["in_norm"] = torch.zeros(cfg.d_model, device=dev)
+        params["layers"] = [
+            part(layer_init(generator, dev, cfg, cfg.layer_spec(i)))
+            for i in range(cfg.n_layers)]
+        if not cfg.tie_embeddings or not cfg.embed_inputs:
+            params["head"] = part(lecun_normal((cfg.d_model, cfg.vocab),
+                                               generator, dev))
         return params
 
     # ------------------------------------------------------------------
     def backbone(self, params: dict[str, Any], x: Tensor, positions: Tensor,
-                 caches: list | None = None,
-                 cache_index: int | None = None) -> tuple[Tensor, list | None]:
+                 caches: list | None = None, cache_index: int | None = None,
+                 with_aux: bool = False) -> tuple[Tensor, list | None, Any]:
+        """The layer stack: (hidden, caches, the MoE layers' summed aux
+        loss, a 0-d f32 tensor, with ``with_aux``; else None, and no MoE
+        layer computes it)."""
         cfg = self.cfg
         remat = self.remat and caches is None and torch.is_grad_enabled()
+        aux_total = (torch.zeros((), dtype=torch.float32, device=x.device)
+                     if with_aux else None)
         for i, p in enumerate(params["layers"]):
             def apply(x, p, i=i):
-                return layer_apply(
+                x, _, aux = layer_apply(
                     cfg, cfg.layer_spec(i), p, x, positions,
                     cache=caches[i] if caches is not None else None,
                     cache_index=cache_index, kv_chunk=self.kv_chunk,
                     mamba_chunk=self.mamba_chunk, ssm_impl=self.ssm_impl,
-                    attn_impl=self.attn_impl)[0]
-            x = (checkpoint(apply, x, p, use_reentrant=False) if remat
-                 else apply(x, p))
-        return x, caches
+                    attn_impl=self.attn_impl, with_aux=with_aux)
+                return x, aux
+            x, aux = (checkpoint(apply, x, p, use_reentrant=False) if remat
+                      else apply(x, p))
+            if aux is not None:
+                aux_total = aux_total + aux
+        return x, caches, aux_total
 
     def embed(self, params: dict[str, Any], batch: dict[str, Any]) -> Tensor:
-        table = params["embed"]
-        tokens = torch.as_tensor(batch["tokens"], device=table.device)
-        return embed_lookup(table, tokens, self.compute_dtype)
+        """Input activations in the compute dtype: frames normed by
+        ``in_norm`` (``embed_inputs=False``), else token embeddings with a
+        VLM's ``vision_embeds`` over the first positions."""
+        cfg = self.cfg
+        dev = params["final_norm"].device
+        dt = self.compute_dtype
+        if not cfg.embed_inputs:
+            x = torch.as_tensor(batch["frames"], device=dev).to(dt)
+            return rms_norm(x, params["in_norm"], cfg.norm_eps)
+        tokens = torch.as_tensor(batch["tokens"], device=dev)
+        x = embed_lookup(params["embed"], tokens, dt)
+        if cfg.vision_prefix and "vision_embeds" in batch:
+            ve = torch.as_tensor(batch["vision_embeds"], device=dev).to(dt)
+            x = torch.cat([ve, x[:, ve.shape[1]:]], dim=1)
+        return x
+
+    def positions_for(self, batch: dict[str, Any], x: Tensor) -> Tensor:
+        """``batch["positions"]`` ((B, 3, S) for M-RoPE) where given, else
+        ``arange(S)`` for every row."""
+        if "positions" in batch:
+            return torch.as_tensor(batch["positions"], device=x.device)
+        if self.cfg.mrope_sections is not None:
+            raise ValueError(f"{self.cfg.name}: M-RoPE needs "
+                             "batch['positions'] of shape (B, 3, S)")
+        B, S, _ = x.shape
+        return torch.arange(S, device=x.device).expand(B, S)
 
     def head(self, params: dict[str, Any]) -> Tensor:
         if "head" in params:
@@ -160,23 +206,22 @@ class LM(nn.Module):
     # ------------------------------------------------------------------
     def loss_fn(self, params: dict[str, Any],
                 batch: dict[str, Any]) -> tuple[Tensor, dict[str, Tensor]]:
-        """Mean next-token cross-entropy of ``batch["tokens"]`` against
-        ``batch["labels"]`` (both ``(B, S)``; labels below 0 are masked),
-        with gradients: ``(loss, {"ce", "aux"})``.  ``aux`` is 0 (the
-        port has no MoE), so the loss is the CE."""
+        """Mean next-token cross-entropy of the inputs against
+        ``batch["labels"]`` ``(B, S)`` (labels below 0 are masked) plus
+        0.01 x the MoE layers' aux loss, with gradients: ``(loss, {"ce",
+        "aux"})``."""
         cfg = self.cfg
         params = self.compute_params(params)
         x = self.embed(params, batch)
-        B, S, _ = x.shape
-        positions = torch.arange(S, device=x.device).expand(B, S)
-        hidden, _ = self.backbone(params, x, positions)
+        hidden, _, aux = self.backbone(params, x,
+                                       self.positions_for(batch, x),
+                                       with_aux=True)
         hidden = rms_norm(hidden, params["final_norm"], cfg.norm_eps)
         labels = torch.as_tensor(batch["labels"], device=x.device)
         ce = chunked_cross_entropy(
             hidden, self.head(params), torch.clamp(labels, min=0),
             chunk=self.ce_chunk, final_softcap_val=cfg.final_softcap,
             mask=labels >= 0)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
     @torch.no_grad()
@@ -189,22 +234,29 @@ class LM(nn.Module):
         params = self.compute_params(params)
         x = self.embed(params, batch)
         B, S, _ = x.shape
-        positions = torch.arange(S, device=x.device).expand(B, S)
         caches = self.init_caches(B, max_len or S, x.device)
-        hidden, caches = self.backbone(params, x, positions, caches, 0)
+        hidden, caches, _ = self.backbone(
+            params, x, self.positions_for(batch, x), caches, 0)
         return self._logits(params, hidden[:, -1:, :]), caches, S
 
     @torch.no_grad()
     def decode_step(self, params: dict[str, Any], caches: list,
                     tokens: Tensor, cache_index: int) -> tuple[Tensor, list]:
         """One autoregressive step of (B, 1) tokens against filled caches,
-        written at ``cache_index``.  Returns (logits (B, V), caches)."""
+        written at ``cache_index`` (every M-RoPE stream at
+        ``cache_index``).  Returns (logits (B, V), caches); an encoder over
+        frames has no decode step and raises ``ValueError``."""
+        cfg = self.cfg
+        if not cfg.embed_inputs:
+            raise ValueError("encoder-only architectures have no decode step")
         params = self.compute_params(params)
         x = self.embed(params, {"tokens": tokens})
         B = x.shape[0]
-        pos = torch.full((B, 1), cache_index, dtype=torch.long,
+        shape = (B, 3, 1) if cfg.mrope_sections is not None else (B, 1)
+        pos = torch.full(shape, cache_index, dtype=torch.long,
                          device=x.device)
-        hidden, caches = self.backbone(params, x, pos, caches, cache_index)
+        hidden, caches, _ = self.backbone(params, x, pos, caches,
+                                          cache_index)
         return self._logits(params, hidden), caches
 
     forward = prefill

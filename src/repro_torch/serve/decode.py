@@ -25,7 +25,7 @@ class DecodeSession:
         self.model = model
         self.max_len = max_len
         self.params = model.compute_params(params)
-        self.device = self.params["embed"].device
+        self.device = self.params["final_norm"].device
         self.caches = None
         self.index = None
 

@@ -572,8 +572,9 @@ def test_sketch_path_on_the_card_equals_the_cpu(dev):
     planner.plan_cache_clear()
 
 
-# K9 sweep: g in {1, 2, 8}, D in {64, 128, 256}, causal and not, window,
-# cap, ragged and unequal Sq / Skv, float32 and bfloat16
+# K9 sweep: g in {1, 2, 4, 8}, D in {64, 80, 96, 128, 256} (80: hubert's
+# non-causal layer), causal and not, window, cap, ragged and unequal
+# Sq / Skv, float32 and bfloat16
 FLASH_SWEEP = [
     # B, Sq, Skv, Hq, Hkv, D, causal, window, cap, dtype
     (2, 40, 40, 4, 4, 64, True, None, None, torch.float32),
@@ -584,6 +585,8 @@ FLASH_SWEEP = [
     (1, 300, 300, 8, 4, 256, True, 64, 50.0, torch.bfloat16),
     (3, 65, 65, 2, 2, 96, False, None, None, torch.bfloat16),
     (1, 1, 17, 8, 4, 256, False, None, 50.0, torch.float32),
+    (2, 100, 100, 4, 4, 80, False, None, None, torch.bfloat16),
+    (1, 77, 90, 8, 2, 80, True, 16, 30.0, torch.float32),
 ]
 
 
@@ -1200,3 +1203,68 @@ def test_serving_launch_counts_unchanged_by_training(dev, name, kernel):
         ops._FlashAttention.apply, ops._MambaScan.apply = real
     assert _build.counts()[kernel] == cfg.n_layers and not entered
     assert torch.isfinite(logits).all()
+
+
+@pytest.mark.parametrize("n_real,top_k,cf,n_shared", [(8, 2, 8.0, 0),
+                                                      (60, 4, 1.25, 2),
+                                                      (8, 2, 0.25, 0)])
+def test_moe_apply_on_the_card_equals_the_cpu(dev, n_real, top_k, cf,
+                                              n_shared):
+    """``moe_apply`` in f32 on the card against the CPU: the same experts
+    chosen (ids equal) and outputs and aux within rtol 1e-5, atol 1e-5,
+    with padded experts (60 of 64), shared experts and capacity drops."""
+    from repro_torch.models.moe import moe_apply, moe_init, route
+
+    E = -(-n_real // 16) * 16
+    p = moe_init(torch.Generator().manual_seed(7), "cpu", 64, 96, E,
+                 n_shared, "silu")
+    x = torch.randn(2, 48, 64, generator=torch.Generator().manual_seed(8))
+    kw = dict(top_k=top_k, n_real=n_real, act="silu", capacity_factor=cf)
+    want = moe_apply(p, x, **kw)
+    on_card = torch.utils._pytree.tree_map(lambda t: t.to(dev), p)
+    got = moe_apply(on_card, x.to(dev), **kw)
+    ids_cpu = route(x.reshape(-1, 64), p["router"], top_k, n_real)[3]
+    ids_card = route(x.reshape(-1, 64).to(dev), on_card["router"], top_k,
+                     n_real)[3]
+    assert torch.equal(ids_card.cpu(), ids_cpu)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-5, atol=1e-5)
+    # repeatable on the card: no atomics in the combine
+    again = moe_apply(on_card, x.to(dev), **kw)
+    assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+
+
+@pytest.mark.parametrize("name", ["qwen2-moe-a2.7b", "deepseek-moe-16b",
+                                  "jamba-1.5-large-398b", "qwen2-vl-72b",
+                                  "hubert-xlarge"])
+def test_moe_vlm_audio_prefill_on_the_card_equals_the_cpu(dev, name):
+    """A reduced MoE, hybrid, VLM or audio model (f32) on the card through
+    K9 (and K10 for jamba) against the same weights on the CPU through the
+    plain versions (rtol 1e-4, atol 1e-4); K9's f32 form launched once an
+    attention layer, K10 once a Mamba layer."""
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models import LM
+
+    cfg = reduced(ARCHS[name])
+    model = LM(cfg, compute_dtype=torch.float32, cache_dtype=torch.float32,
+               attn_impl="kernel", ssm_impl="kernel")
+    params = model.init(torch.Generator().manual_seed(3), device="cpu")
+    gen = torch.Generator().manual_seed(4)
+    if cfg.embed_inputs:
+        batch = {"tokens": torch.randint(0, cfg.vocab, (2, 24),
+                                         generator=gen)}
+    else:
+        batch = {"frames": torch.randn(2, 24, cfg.d_model, generator=gen)}
+    if cfg.vision_prefix:
+        batch["vision_embeds"] = torch.randn(2, cfg.vision_prefix,
+                                             cfg.d_model, generator=gen)
+        batch["positions"] = torch.arange(24).expand(2, 3, 24)
+    want, _, _ = model.prefill(params, batch)
+    on_card = torch.utils._pytree.tree_map(lambda t: t.to(dev), params)
+    _build.reset_counts()
+    got, _, _ = model.prefill(on_card, {k: v.to(dev)
+                                        for k, v in batch.items()})
+    mixers = [cfg.layer_spec(i).mixer for i in range(cfg.n_layers)]
+    assert _build.counts()["flash_attention_f32"] == mixers.count("attn")
+    assert _build.counts()["mamba_scan"] == mixers.count("mamba")
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)

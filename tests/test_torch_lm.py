@@ -154,16 +154,6 @@ def test_kernel_routing_read_from_op_calls(name, op, jax_params, prompt):
     assert sum(ops.OP_CALLS.values()) == 0
 
 
-@pytest.mark.parametrize("name", ["qwen2-moe-a2.7b", "qwen2-vl-72b",
-                                  "hubert-xlarge"])
-def test_configs_without_ported_layers_raise(name):
-    cfg = reduced(ARCHS[name])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LM(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm_params_from_numpy(cfg, {}, device="cpu")
-
-
 def test_params_unstack_into_layer_order(jax_params):
     """Layer i of the port is ``scan[i % 2][i // 2]`` of gemma2's period-2
     layout (local, global)."""
