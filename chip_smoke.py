@@ -208,6 +208,35 @@
    and, for train-gemma, the model FLOPs (``train_flop_per_token``) and
    their utilisation of 989 TFLOP/s (with ``--profile``, a profile of one
    warm step of each stepped case);
+8a. the sharded lm phase (``run_sharded_lm``, after ``init_world``; NCCL
+   refuses two ranks on one card, so the collectives of a real mesh are
+   emulated in one process, and tests/test_torch_sharded_lm.py runs them
+   over gloo): K9 on each rank's local heads of gemma2-2b's global layer
+   (2 x 8192, Hq = 8, Hkv = 4, D = 256, bf16, cap 50; tp = 2 and 4 split
+   the kv heads, tp = 8 replicates them and each rank reads the kv head of
+   its q head) and of qwen2-moe-a2.7b's (Hq = Hkv = 16, D = 128; tp = 2,
+   4, 8), K10 on each rank's channel slice of falcon-mamba-7b's layer
+   (4 x 2048, C = 8192, N = 16; tp = 2, 4, 8, 16), concatenated as the
+   collective would and bit-equal to the unsharded call, each local call
+   timed beside its plain version, its bound and (K9) SDPA; the MoE island
+   of each model rank of qwen2-moe-a2.7b's layer (2 x 8192 tokens, 64
+   padded experts, tp = 2, 4, 8) summed in rank order against the
+   one-device routed output (top-4: a token's terms split across ranks
+   associate otherwise, so it is held to K9's bf16 tolerance and says
+   why); then gemma2-2b at full width on the one-rank (1, 1) ``("data",
+   "model")`` mesh (DTensor parameters, ``LM(mesh=...)``): its 2 x 8192
+   scoring prefill's logits, and one train step's loss and gradients at 2
+   layers, bit-equal to the unsharded LM's with the same K9 launches; then
+   the launcher ``launch.train.main`` as train-gemma runs (gemma2-2b full,
+   bf16, B = 1, S = 8192, 3 steps; K9 2 x 26 a step; its s/step beside the
+   train path's) and its restart check at ``--preset reduced``: steps 1-4
+   with ``--ckpt-every 2``, then a resume from a directory holding only
+   step 2's checkpoint, whose losses must equal steps 3-4 at rtol 1e-5,
+   and whose heartbeat holds the last step; one ``sharded lm emulation``,
+   ``sharded lm mesh`` and ``sharded lm launcher`` line; its launch window
+   (the mesh LM and the launcher, not the emulations) is the K9 / K10
+   records' ``sharded_lm_path_launches``, and the emulations' timings
+   their ``local_shards``;
 8b. after the LM phase and every kernel's check and timing (a short
    profiler session after the paper path saw no kernel on the H100
    machine), drives the paper path, the paper's own cell
@@ -245,7 +274,8 @@
    card (``train_lm.py`` for 20 steps), in a subprocess: it must exit 0
    and print its verdict as ``True``; one ``examples:`` line;
 9. prints one ``{"kernels": [...]}`` line (K9's and K10's records with
-   ``train_path_launches``) and, last, the device line
+   ``train_path_launches`` and ``sharded_lm_path_launches``) and, last,
+   the device line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line.  The script imports
@@ -3117,7 +3147,8 @@ def run_train_path(torch, dev, profile: bool):
     AdamW steps, each synchronised, in the train launch-count window,
     where K9 (train-gemma) or K10 (train-falcon) must launch exactly twice
     a layer a step and nothing else may launch.  Prints one ``train
-    path:`` line a case; returns the window's counts."""
+    path:`` line a case; returns the window's counts and each stepped
+    case's warm step seconds."""
     from repro_torch.configs import ARCHS
     from repro_torch.data import TokenPipeline
     from repro_torch.kernels import _build
@@ -3126,6 +3157,7 @@ def run_train_path(torch, dev, profile: bool):
     from repro_torch.tree import tree_leaves
 
     window = dict.fromkeys(_build.counts(), 0)
+    warm_by_case = {}
     for case in TRAIN_CASES:
         cfg = ARCHS[case["arch"]]
         if case["n_layers"]:
@@ -3189,6 +3221,7 @@ def run_train_path(torch, dev, profile: bool):
         for k, v in counts.items():
             window[k] += v
         warm = statistics.mean(walls[1:])
+        warm_by_case[case["label"]] = warm
         tokens = case["batch"] * case["seq"]
         line.update(
             losses=losses, step_walls_s=walls, warm_step_s=warm,
@@ -3210,7 +3243,366 @@ def run_train_path(torch, dev, profile: bool):
         del state, params, step, model
         gc.collect()
         torch.cuda.empty_cache()
-    return window
+    return window, warm_by_case
+
+
+# ---------------------------------------------------------------------------
+# 8a2. the sharded LM phase
+# ---------------------------------------------------------------------------
+
+# Per-rank emulation at full width in one process: each model rank's local
+# shard of a layer's K9 / K10 / MoE call, concatenated or summed as the
+# collective would, against the unsharded call.  NCCL refuses two ranks on
+# one card, so the collectives are emulated here; tests/test_torch_sharded_lm.py
+# runs them for real over gloo.
+SHARDED_K9 = (
+    # label, B, S, Hq, Hkv, D, cap; tp over the heads (gemma2-2b's kv = 4
+    # does not divide tp = 8: wk / wv replicated, each rank reads the kv
+    # head of its q head)
+    ("gemma2-2b global layer", 2, 8192, 8, 4, 256, 50.0, (2, 4, 8)),
+    ("qwen2-moe-a2.7b layer", 2, 8192, 16, 16, 128, None, (2, 4, 8)),
+)
+SHARDED_K10 = dict(label="falcon-mamba-7b layer", B=4, S=2048, C=8192, N=16,
+                   tps=(2, 4, 8, 16))
+SHARDED_MOE = dict(arch="qwen2-moe-a2.7b", tokens=2 * 8192, tps=(2, 4, 8))
+# the sharded LM on the one-rank (1, 1) mesh: gemma2-2b at full width,
+# LM_SCORE's scoring prefill and one train step's gradients at
+# SHARDED_TRAIN_LAYERS layers (bf16, remat, B = 1, S = 8192)
+SHARDED_TRAIN_LAYERS = 2
+# the launcher: launch.train as train-gemma runs it, then its restart check
+LAUNCH_FULL = ["--arch", "gemma2-2b", "--preset", "full", "--batch", "1",
+               "--seq", "8192", "--steps", "3", "--device", "cuda",
+               "--log-every", "1"]
+LAUNCH_RESUME = ["--arch", "gemma2-2b", "--preset", "reduced", "--batch",
+                 "2", "--seq", "64", "--device", "cuda", "--log-every",
+                 "100"]
+LAUNCH_RESUME_RTOL = 1e-5      # tests/test_system.py:70-78
+
+
+def sharded_k9(torch, dev, gen, label, B, S, Hq, Hkv, D, cap, tps) -> dict:
+    """K9 on each rank's local heads against the unsharded call."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.models.attention import _kv_for_heads
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(dev, torch.bfloat16)
+
+    q, k, v = randn(B, S, Hq, D), randn(B, S, Hkv, D), randn(B, S, Hkv, D)
+    want = flash_attention_cuda(q, k, v, True, None, cap)
+    out = {"shape": f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} bf16 causal "
+                    f"cap={cap}",
+           "unsharded_ms": time_ms(
+               lambda: flash_attention_cuda(q, k, v, True, None, cap), 5),
+           "tp": {}}
+    for tp in tps:
+        hl = Hq // tp
+
+        def shard(r):
+            qr = q[:, :, r * hl:(r + 1) * hl].contiguous()
+            if Hkv % tp == 0:
+                kl = Hkv // tp
+                return (qr, k[:, :, r * kl:(r + 1) * kl].contiguous(),
+                        v[:, :, r * kl:(r + 1) * kl].contiguous())
+            return (qr, _kv_for_heads(k, hl, Hq, Hkv, r).contiguous(),
+                    _kv_for_heads(v, hl, Hq, Hkv, r).contiguous())
+
+        got = torch.cat([flash_attention_cuda(*shard(r), True, None, cap)
+                         for r in range(tp)], dim=2)
+        rec = {"kv": "split" if Hkv % tp == 0 else
+               "replicated (kv does not divide tp); each rank reads kv "
+               "head h // (Hq / Hkv) of its q heads",
+               "bit_equal": bool(torch.equal(got, want)),
+               "max_abs_err": (got.float() - want.float()).abs().max().item()}
+        if not rec["bit_equal"]:
+            k9_compare(f"sharded K9 {label} tp={tp}", got, want)
+            rec["why"] = "K9's blocks of one head read other heads' tiles"
+        del got
+        q0, k0, v0 = shard(0)
+        pairs = attn_pairs(S, S, True, None)
+        rec["bound_ms"], rec["bound_by"] = bound(
+            (2 * q0.numel() + 2 * k0.numel()) * 2,
+            4.0 * B * hl * D * pairs, PEAK_BF16)
+        rec["ms"] = time_ms(
+            lambda: flash_attention_cuda(q0, k0, v0, True, None, cap), 5)
+        rec["plain_ms"] = time_ms(
+            lambda: ref.flash_attention_ref(q0, k0, v0, True, None, cap), 1,
+            warmup=1)
+        rec["library_ms"] = time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q0.transpose(1, 2), k0.transpose(1, 2), v0.transpose(1, 2),
+                is_causal=True, enable_gqa=True), 5)
+        rec["library_call"] = ("F.scaled_dot_product_attention(is_causal="
+                               "True, enable_gqa=True), no cap")
+        rec["local_shape"] = f"Hq={hl} Hkv={k0.shape[2]}"
+        out["tp"][tp] = rec
+        del q0, k0, v0
+    return out
+
+
+def sharded_k10(torch, dev, gen, label, B, S, C, N, tps) -> dict:
+    """K10 on each rank's channel slice against the unsharded call."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.mamba_scan import mamba_scan_cuda
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(dev)
+
+    args = (torch.rand(B, S, C, generator=gen).to(dev) * 0.1, randn(B, S, C),
+            -torch.rand(C, N, generator=gen).to(dev) * 3, randn(B, S, N),
+            randn(B, S, N), randn(B, C, N))
+    wy, wh = mamba_scan_cuda(*args)
+    out = {"shape": f"B={B} S={S} C={C} N={N} f32",
+           "unsharded_ms": time_ms(lambda: mamba_scan_cuda(*args), 5),
+           "tp": {}}
+    d, u, A, Bm, Cm, h0 = args
+    for tp in tps:
+        cl = C // tp
+
+        def shard(r):
+            sl = slice(r * cl, (r + 1) * cl)
+            return (d[..., sl].contiguous(), u[..., sl].contiguous(),
+                    A[sl].contiguous(), Bm, Cm, h0[:, sl].contiguous())
+
+        parts = [mamba_scan_cuda(*shard(r)) for r in range(tp)]
+        gy = torch.cat([p[0] for p in parts], dim=2)
+        gh = torch.cat([p[1] for p in parts], dim=1)
+        del parts
+        rec = {"bit_equal": bool(torch.equal(gy, wy) and torch.equal(gh, wh)),
+               "max_abs_err": max((gy - wy).abs().max().item(),
+                                  (gh - wh).abs().max().item())}
+        check(rec["bit_equal"], f"sharded K10 {label} tp={tp}: the channel "
+              "slices are not bit-equal to the unsharded scan")
+        del gy, gh
+        a0 = shard(0)
+        rec["bound_ms"], rec["bound_by"] = bound(
+            4.0 * (B * S * (2 * cl + 2 * N) + B * S * cl + cl * N
+                   + 2 * B * cl * N), 7.0 * B * S * cl * N + B * S * cl)
+        rec["ms"] = time_ms(lambda: mamba_scan_cuda(*a0), 10)
+        _, rec["plain_ms"] = timed(lambda: ref.mamba_scan_ref(*a0))
+        rec["library_ms"] = None
+        rec["local_shape"] = f"C={cl}"
+        out["tp"][tp] = rec
+        del a0
+    return out
+
+
+def sharded_moe(torch, dev, gen, arch, tokens, tps) -> dict:
+    """Each model rank's routed experts (``E_padded / tp`` from ``e0``)
+    on one layer of ``arch`` at full width in bf16, summed in rank order,
+    against the one-device routed output."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.moe import _routed, moe_init
+
+    cfg = ARCHS[arch]
+    E = cfg.n_experts_padded
+    gdev = torch.Generator(device=dev).manual_seed(
+        int(torch.randint(1 << 30, (1,), generator=gen)))
+    p = {k: v.to(torch.bfloat16) for k, v in moe_init(
+        gdev, dev, cfg.d_model, cfg.d_expert or cfg.d_ff, E, 0,
+        cfg.act).items()}
+    xt = torch.randn(tokens, cfg.d_model, generator=gdev,
+                     device=dev).to(torch.bfloat16)
+    opts = dict(top_k=cfg.top_k, n_real=cfg.n_experts, capacity_factor=1.25,
+                act=cfg.act, with_aux=False)
+    want, _ = _routed(xt, p["router"], p["wi"], p["wg"], p["wo"], **opts)
+    out = {"shape": f"T={tokens} d={cfg.d_model} f={cfg.d_expert} "
+                    f"E={E} ({cfg.n_experts} real) top_k={cfg.top_k} bf16",
+           "unsharded_ms": time_ms(lambda: _routed(
+               xt, p["router"], p["wi"], p["wg"], p["wo"], **opts), 3),
+           "tp": {}}
+    for tp in tps:
+        el = E // tp
+        y = None
+        for r in range(tp):
+            sl = slice(r * el, (r + 1) * el)
+            yr, _ = _routed(xt, p["router"], p["wi"][sl], p["wg"][sl],
+                            p["wo"][sl], e0=r * el, **opts)
+            y = yr if y is None else y + yr
+        rec = {"bit_equal": bool(torch.equal(y, want)),
+               "max_abs_err": (y.float() - want.float()).abs().max().item()}
+        if not rec["bit_equal"]:
+            # top-k > 2: a token's k terms split across ranks are summed
+            # per rank, then across ranks, another association of the same
+            # bf16 terms than the one device's running sum
+            k9_compare(f"sharded MoE {arch} tp={tp}", y, want)
+            rec["why"] = (f"top_k = {cfg.top_k}: a token's terms on one "
+                          "rank are summed before the ranks' sums, another "
+                          "association of the same bf16 terms; held to "
+                          f"{K9_TOL['bfloat16']} and a relative RMS error "
+                          f"of {K9_BF16_REL_RMS}")
+        rec["rank0_ms"] = time_ms(lambda: _routed(
+            xt, p["router"], p["wi"][:el], p["wg"][:el], p["wo"][:el],
+            e0=0, **opts), 3)
+        out["tp"][tp] = rec
+        del y
+    del p, xt, want
+    return out
+
+
+def run_sharded_lm(torch, dev, train_warm: dict):
+    """The ``sharded lm`` phase (after ``init_world``): the per-rank
+    emulations, the sharded LM on the one-rank (1, 1) NCCL mesh against
+    the unsharded LM, and the launcher ``launch.train`` with its restart
+    check.  Returns (the path window's launch counts, the emulation
+    records)."""
+    from repro_torch.configs import ARCHS, get_arch
+    from repro_torch.distributed.sharding import (AxisRules, full,
+                                                  param_shardings)
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train as launcher
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import LM
+    from repro_torch.train.trainer import value_and_grad
+    from repro_torch.tree import named_leaves
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cpu").manual_seed(25)
+    recs = {"flash_attention": {c[0]: sharded_k9(torch, dev, gen, *c)
+                                for c in SHARDED_K9},
+            "mamba_scan": {SHARDED_K10["label"]: sharded_k10(
+                torch, dev, gen, **SHARDED_K10)},
+            "moe": sharded_moe(torch, dev, gen, **SHARDED_MOE)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    emul_s = time.perf_counter() - t0
+    print("sharded lm emulation: " + json.dumps(recs))
+
+    window = dict.fromkeys(_build.counts(), 0)
+
+    def count(counts):
+        for k, v in counts.items():
+            window[k] += v
+
+    # the sharded LM on the one-rank mesh against the unsharded LM
+    t1 = time.perf_counter()
+    mesh = make_host_mesh((1, 1), ("data", "model"), device_type="cuda")
+    cfg = ARCHS["gemma2-2b"]
+    g = torch.Generator(device=dev).manual_seed(LM_SEED)
+    params = LM(cfg).init(g, device=dev)
+    toks = torch.randint(0, cfg.vocab, (LM_SCORE["batch"],
+                                        LM_SCORE["prompt"]),
+                         generator=g, device=dev)
+    line = {"mesh": [1, 1], "model": cfg.name, "score": LM_SCORE}
+    logits = {}
+    for route, model, tree in (
+            ("unsharded", LM(cfg, attn_impl="kernel"), params),
+            ("mesh", LM(cfg, mesh=mesh, attn_impl="kernel"),
+             param_shardings(cfg, mesh, AxisRules(), params,
+                             distribute_leaves=True))):
+        torch.cuda.synchronize()
+        _build.reset_counts()
+        ts = time.perf_counter()
+        lg, caches, _ = model.prefill(model.compute_params(tree),
+                                      {"tokens": toks})
+        lg = full(lg)
+        torch.cuda.synchronize()
+        line[f"{route}_prefill_s"] = time.perf_counter() - ts
+        counts = _build.counts()
+        line[f"{route}_prefill_launches"] = {k: v for k, v in counts.items()
+                                             if v}
+        count(counts)
+        logits[route] = lg
+        del caches, tree
+    check(line["mesh_prefill_launches"] == line["unsharded_prefill_launches"]
+          == {"flash_attention": cfg.n_layers},
+          f"sharded lm: prefill launches {line['mesh_prefill_launches']} vs "
+          f"{line['unsharded_prefill_launches']}")
+    check(torch.equal(logits["mesh"], logits["unsharded"]),
+          "sharded lm: the (1, 1) mesh's prefill logits are not bit-equal "
+          "to the unsharded LM's (max abs "
+          f"{(logits['mesh'] - logits['unsharded']).abs().max().item()})")
+    line["prefill_bit_equal"] = True
+    del params, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg2 = dataclasses.replace(cfg, n_layers=SHARDED_TRAIN_LAYERS)
+    g = torch.Generator(device=dev).manual_seed(LM_SEED)
+    params = LM(cfg2).init(g, device=dev)
+    tb = torch.randint(0, cfg2.vocab, (1, 8192), generator=g, device=dev)
+    batch = {"tokens": tb, "labels": torch.roll(tb, -1, 1)}
+    grads = {}
+    for route, model, tree in (
+            ("unsharded", LM(cfg2, attn_impl="kernel"), params),
+            ("mesh", LM(cfg2, mesh=mesh, attn_impl="kernel"),
+             param_shardings(cfg2, mesh, AxisRules(), params,
+                             distribute_leaves=True))):
+        _build.reset_counts()
+        (loss, _), gr = value_and_grad(model, tree, batch)
+        torch.cuda.synchronize()
+        counts = _build.counts()
+        line[f"{route}_step_launches"] = {k: v for k, v in counts.items()
+                                          if v}
+        count(counts)
+        grads[route] = (loss, [full(t) for _, t in named_leaves(gr)])
+        del gr, tree
+    (lu, gu), (lm, gm) = grads["unsharded"], grads["mesh"]
+    check(line["mesh_step_launches"] == line["unsharded_step_launches"]
+          == {"flash_attention": 2 * SHARDED_TRAIN_LAYERS},
+          f"sharded lm: step launches {line['mesh_step_launches']}")
+    diff = [(a - b).abs().max().item() for a, b in zip(gm, gu)]
+    check(torch.equal(lm, lu) and max(diff) == 0.0,
+          f"sharded lm: the mesh's step is not bit-equal (loss {lm.item()} "
+          f"vs {lu.item()}, largest gradient difference {max(diff)})")
+    line.update(step_layers=SHARDED_TRAIN_LAYERS, step_loss=lu.item(),
+                step_bit_equal=True, mesh_s=time.perf_counter() - t1)
+    del params, grads, gu, gm, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("sharded lm mesh: " + json.dumps(line))
+
+    # the launcher, as train-gemma runs, and its restart check
+    t2 = time.perf_counter()
+    _build.reset_counts()
+    run = launcher.main(LAUNCH_FULL)
+    counts = _build.counts()
+    count(counts)
+    n = int(LAUNCH_FULL[LAUNCH_FULL.index("--steps") + 1])
+    check(counts["flash_attention"] == 2 * cfg.n_layers * n,
+          f"sharded lm launcher: K9 launched {counts['flash_attention']} "
+          f"times, expected 2 x {cfg.n_layers} x {n}")
+    check(all(map(math.isfinite, run["losses"])),
+          f"sharded lm launcher: a non-finite loss {run['losses']}")
+    drv = {"argv": LAUNCH_FULL, "losses": run["losses"],
+           "step_s": run["step_s"],
+           "warm_step_s": statistics.mean(run["step_s"][1:]),
+           "train_path_warm_step_s": train_warm.get("train-gemma"),
+           "launches": {k: v for k, v in counts.items() if v},
+           "s": time.perf_counter() - t2}
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        ck, lost, hb = (str(Path(tmp) / x) for x in ("ck", "lost", "hb"))
+        _build.reset_counts()
+        whole = launcher.main(LAUNCH_RESUME + [
+            "--steps", "4", "--ckpt-every", "2", "--ckpt-dir", ck])
+        # the job dies after step 2: only that checkpoint survives
+        shutil.copytree(Path(ck) / "step_00000002",
+                        Path(lost) / "step_00000002")
+        resumed = launcher.main(LAUNCH_RESUME + [
+            "--steps", "4", "--ckpt-every", "2", "--ckpt-dir", lost,
+            "--heartbeat", hb])
+        count(_build.counts())
+        with open(hb) as f:
+            beat = json.load(f)
+    check(resumed["start"] == 2, f"sharded lm resume: restored step "
+          f"{resumed['start']}, expected 2")
+    rel = max(abs(a - b) / abs(b) for a, b in
+              zip(resumed["losses"], whole["losses"][2:]))
+    check(rel <= LAUNCH_RESUME_RTOL, f"sharded lm resume: losses "
+          f"{resumed['losses']} vs {whole['losses'][2:]} beyond rtol "
+          f"{LAUNCH_RESUME_RTOL}")
+    check(beat["step"] == 3, f"sharded lm resume: heartbeat step "
+          f"{beat['step']}, expected 3 (the last of 0-3)")
+    drv["resume"] = {"argv": LAUNCH_RESUME, "whole_losses": whole["losses"],
+                     "resumed_losses": resumed["losses"], "max_rel": rel,
+                     "bit_equal": resumed["losses"] == whole["losses"][2:],
+                     "heartbeat_step": beat["step"]}
+    drv["sharded_lm_phase_s"] = time.perf_counter() - t0
+    drv["emulation_s"] = emul_s
+    print("sharded lm launcher: " + json.dumps(drv))
+    return window, recs
 
 
 def k9_tol(x) -> dict:
@@ -4721,7 +5113,7 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         phase("lm kernels")
-        tr_launches = run_train_path(torch, dev, profile)
+        tr_launches, tr_warm = run_train_path(torch, dev, profile)
         for rec in kernels:
             if rec["name"] in LM_KERNELS:
                 rec["train_path_launches"] = tr_launches[rec["name"]]
@@ -4735,6 +5127,18 @@ def main() -> int:
         # (four calls on the H100 machine, with the sessions primed and
         # retried); a long one, the paper path's profile, still did
         init_world(torch)
+        sh_launches, sh_recs = run_sharded_lm(torch, dev, tr_warm)
+        for rec in kernels:
+            if rec["name"] in LM_KERNELS:
+                rec["sharded_lm_path_launches"] = sh_launches[rec["name"]]
+                rec["launches"] += sh_launches[rec["name"]]
+                if rec["name"] in sh_recs:
+                    rec["local_shards"] = sh_recs[rec["name"]]
+        check(sum(sh_launches[k] for k in sh_launches
+                  if k not in LM_KERNELS) == 0,
+              f"sharded lm: a search kernel launched: {sh_launches}")
+        del sh_recs
+        phase("sharded lm")
         pp_data = paper_data(paper_proc, paper_tmp)
         pp_launches, pp_recs = run_paper_path(torch, dev, pp_data)
         phase("paper path")

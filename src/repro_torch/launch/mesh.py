@@ -7,9 +7,12 @@ caller runs ``torch.distributed.init_process_group`` with its address,
 world size and rank (gloo for a ``"cpu"`` mesh, NCCL for a ``"cuda"``
 one), since nothing tells a process of a cluster.
 
-``make_production_mesh`` (the 256- and 512-chip pod meshes) needs that
-many ranks and belongs to the distributed LM and launch modules, which
-are not ported yet.
+``make_production_mesh`` is the deployment mesh of the sharding rules
+(``distributed.sharding``): a (16, 16) ``("data", "model")`` pod of 256
+ranks, or two pods (2, 16, 16) with a leading pure-DP ``pod`` axis, 512
+ranks.  A smaller world raises and names the count, as the reference
+does when it has too few devices; the rules themselves can be checked
+without the ranks on a mesh stub (``tests/test_torch_sharding.py``).
 """
 
 from __future__ import annotations
@@ -63,3 +66,19 @@ def make_host_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *,
     if device_type == "cuda":
         torch.cuda.set_device(dist.get_rank() % torch.cuda.device_count())
     return init_device_mesh(device_type, shape, mesh_dim_names=axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda"):
+    """The target deployment mesh: one 16 x 16 pod (256 ranks), or two
+    pods (512 ranks) with a leading pure-DP ``pod`` axis, over a world of
+    exactly that many ranks."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = math.prod(shape)
+    have = dist.get_world_size() if dist.is_initialized() else 0
+    if have != n:
+        raise RuntimeError(
+            f"need {n} ranks for the production mesh {shape}, the world has "
+            f"{have} (init_process_group with world_size={n} first)")
+    return make_host_mesh(shape, axes, device_type=device_type)

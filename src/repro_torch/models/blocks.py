@@ -6,7 +6,9 @@ FFN (routed MoE, else a dense MLP where ``d_ff > 0``) + residual.
 Routing kept from the JAX package (``blocks.py:83,91``): a call with
 ``S == 1`` (every decode step) runs the plain ``"chunked"`` attention and
 ``"scan"`` paths whatever the model's impl, so no kernel runs in a decode
-step.
+step.  Under a mesh (``ctx``) every sublayer gets the constraint helper,
+the MoE its mesh and data axes, and the block's output is constrained to
+the residual stream's spec (``blocks.py:108``).
 """
 
 from __future__ import annotations
@@ -59,6 +61,7 @@ def layer_apply(
     ssm_impl: str = "scan",
     attn_impl: str = "chunked",
     with_aux: bool = False,
+    ctx=None,
 ) -> tuple[Tensor, dict[str, Tensor] | None, Tensor | None]:
     """Apply one block.  Returns (x, the layer's cache or None, the MoE
     aux loss: a 0-d f32 tensor for an MoE layer with ``with_aux``, else
@@ -72,13 +75,13 @@ def layer_apply(
             score_cap=cfg.attn_softcap, rope_theta=cfg.rope_theta,
             mrope_sections=cfg.mrope_sections, cache=cache,
             cache_index=cache_index, kv_chunk=kv_chunk,
-            impl=attn_impl if x.shape[1] > 1 else "chunked",
+            impl=attn_impl if x.shape[1] > 1 else "chunked", ctx=ctx,
         )
     else:
         out, new_cache = mamba_apply(
             p["mamba"], h, d_state=cfg.ssm_state, conv_width=cfg.conv_width,
             chunk=mamba_chunk, cache=cache,
-            impl=ssm_impl if x.shape[1] > 1 else "scan",
+            impl=ssm_impl if x.shape[1] > 1 else "scan", ctx=ctx,
         )
     x = x + out
     aux = None
@@ -86,11 +89,18 @@ def layer_apply(
         h = rms_norm(x, p["norm2"], cfg.norm_eps)
         out, aux = moe_apply(p["moe"], h, top_k=cfg.top_k,
                              n_real=cfg.n_experts, act=cfg.act,
-                             with_aux=with_aux)
+                             with_aux=with_aux,
+                             mesh=None if ctx is None else ctx.mesh,
+                             dp_axes=("data",) if ctx is None else ctx.dp,
+                             ctx=ctx)
         x = x + out
     elif cfg.d_ff > 0:
         h = rms_norm(x, p["norm2"], cfg.norm_eps)
-        x = x + mlp_apply(p["mlp"], h, cfg.act)
+        x = x + mlp_apply(p["mlp"], h, cfg.act, ctx=ctx)
+    if ctx is not None:
+        # "sp": with seq-sharded residuals (Megatron-SP) the stream shards
+        # over tp; no-op otherwise
+        x = ctx.con(x, "dp", "sp", None)
     return x, new_cache, aux
 
 

@@ -144,10 +144,14 @@ def mlp_init(gen: torch.Generator, device, d_model: int, d_ff: int,
     return p
 
 
-def mlp_apply(p: dict[str, Tensor], x: Tensor, act: str) -> Tensor:
-    """Gated only for ``silu``, as in the JAX package."""
+def mlp_apply(p: dict[str, Tensor], x: Tensor, act: str,
+              ctx=None) -> Tensor:
+    """Gated only for ``silu``, as in the JAX package; under a mesh
+    (``ctx``) the hidden units shard over tp."""
     dt = x.dtype
     h = x @ p["wi"].to(dt)
+    if ctx is not None:
+        h = ctx.con(h, "dp", None, "tp")
     if "wg" in p:
         h = activation(act)(x @ p["wg"].to(dt)) * h
     else:
@@ -171,7 +175,7 @@ def embed_lookup(table: Tensor, ids: Tensor, dtype) -> Tensor:
 def chunked_cross_entropy(x: Tensor, w_head: Tensor, labels: Tensor, *,
                           chunk: int = 512,
                           final_softcap_val: float | None = None,
-                          mask: Tensor | None = None) -> Tensor:
+                          mask: Tensor | None = None, ctx=None) -> Tensor:
     """Mean next-token cross-entropy without materialising ``(B, S, V)``
     f32 logits: x ``(B, S, D)``, w_head ``(D, V)``, labels ``(B, S)``
     (masked positions where ``mask`` is false), a 0-d f32 tensor.
@@ -181,7 +185,8 @@ def chunked_cross_entropy(x: Tensor, w_head: Tensor, labels: Tensor, *,
     each chunk runs in ``torch.utils.checkpoint``, which recomputes its
     logits in backward -- otherwise every chunk's ``(B, chunk, V)`` f32
     residuals would stay alive for the backward and the chunking would
-    save nothing for training.
+    save nothing for training.  Under a mesh (``ctx``) each chunk's logits
+    shard their vocab over tp.
     """
     B, S, _ = x.shape
     chunk = min(chunk, S)
@@ -195,9 +200,19 @@ def chunked_cross_entropy(x: Tensor, w_head: Tensor, labels: Tensor, *,
 
     def body(xi: Tensor, li: Tensor, mi: Tensor, w: Tensor) -> Tensor:
         logits = (xi @ w.to(xi.dtype)).float()
+        if ctx is not None:
+            logits = ctx.con(logits, "dp", None, "tp")
         logits = softcap(logits, final_softcap_val)
         lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, li[..., None].long())[..., 0]
+        if ctx is None:
+            gold = torch.gather(logits, -1, li[..., None].long())[..., 0]
+        else:
+            # the gold logit as a masked sum over the sharded vocab (one
+            # term is nonzero, so the sum is exact)
+            vocab = ctx.con(torch.arange(logits.shape[-1],
+                                         device=logits.device), None)
+            gold = torch.sum(torch.where(li[..., None].long() == vocab,
+                                         logits, 0.0), dim=-1)
         return torch.sum(torch.where(mi, lse - gold, 0.0))
 
     grad = torch.is_grad_enabled() and (x.requires_grad

@@ -6,7 +6,9 @@ chunked linear recurrence (a loop over sequence chunks carrying the
 and ``"kernel"`` (JAX's ``"pallas"``), the K10 op, which keeps the state
 on chip for the whole sequence.  The depthwise causal conv is shifted
 adds, with the previous segment's tail from the cache.  ``A = -exp(A_log)``,
-softplus in f32, and the state ``h`` in f32 in the cache.
+softplus in f32, and the state ``h`` in f32 in the cache.  Under a mesh
+the channels shard over tp and the conv and the scan run on each rank's
+channels (``mamba_apply``).
 """
 
 from __future__ import annotations
@@ -108,6 +110,24 @@ def _chunked_selective_scan(delta: Tensor, u: Tensor, A: Tensor,
     return torch.cat(ys, dim=1), h
 
 
+def _conv_silu(xi: Tensor, w: Tensor, b: Tensor, prev: Tensor | None,
+               conv_width: int, keep_tail: bool):
+    """silu of the causal conv, and the new conv tail when ``keep_tail``
+    (a copy, not a view of the (B, S + K - 1, C) concat)."""
+    u = F.silu(_causal_conv(xi, w, b, prev))
+    if not keep_tail:
+        return u, None
+    return u, torch.cat([prev, xi.to(prev.dtype)],
+                        dim=1)[:, -(conv_width - 1):].clone()
+
+
+def _scan(delta: Tensor, uf: Tensor, A: Tensor, Bmat: Tensor, Cmat: Tensor,
+          h0: Tensor, *, impl: str, chunk: int):
+    if impl == "kernel":
+        return ops.mamba_scan_op(delta, uf, A.float(), Bmat, Cmat, h0)
+    return _chunked_selective_scan(delta, uf, A, Bmat, Cmat, h0, chunk)
+
+
 def mamba_apply(
     p: dict[str, Tensor],
     x: Tensor,                      # (B, S, d_model)
@@ -117,10 +137,20 @@ def mamba_apply(
     chunk: int = 256,
     cache: dict[str, Tensor] | None = None,
     impl: str = "scan",             # "scan" | "kernel"
+    ctx=None,
 ) -> tuple[Tensor, dict[str, Tensor] | None]:
     """Mamba-1 mixer.  With ``cache`` (dict h/conv) it runs as an
     incremental segment and stores the new state and conv tail in that
-    dict.  Returns (output, the cache or None)."""
+    dict.  Returns (output, the cache or None).
+
+    Under a mesh (``ctx``, DTensor activations) the d_inner channels shard
+    over tp: ``in_proj``'s ``2 d_inner`` product is resharded before the
+    split into x and z (a local split of the sharded product would hand
+    all of x to the first half of the ranks), the conv and the scan (K10
+    on the local channels) run on each rank's shard with no collective,
+    and ``x_proj``'s contraction over the sharded channels is reduced
+    before dt, B and C are read.
+    """
     if impl not in ("scan", "kernel"):
         raise ValueError(f"unknown ssm impl {impl!r}")
     B, S, _ = x.shape
@@ -129,11 +159,31 @@ def mamba_apply(
     dt_rank = p["dt_proj"].shape[0]
 
     xz = x @ p["in_proj"].to(dt)                       # (B, S, 2*din)
+    if ctx is not None:   # d_inner channels over tp: zero-collective scan
+        xz = ctx.con(xz, "dp", None, "tp")
     xi, z = torch.chunk(xz, 2, dim=-1)
     prev = cache["conv"] if cache is not None else None
-    u = F.silu(_causal_conv(xi, p["conv_w"], p["conv_b"], prev))
+    if ctx is None:
+        u, tail = _conv_silu(xi, p["conv_w"], p["conv_b"], prev,
+                             conv_width, cache is not None)
+    else:
+        from repro_torch.distributed.sharding import shard_map_compat
+
+        xi = ctx.con(xi, "dp", None, "tp")
+        z = ctx.con(z, "dp", None, "tp")
+        cpl = tuple(xi.placements)
+        u, tail = shard_map_compat(
+            lambda *a: _conv_silu(*a, conv_width, cache is not None),
+            mesh=ctx.mesh,
+            in_specs=(cpl, tuple(p["conv_w"].placements),
+                      tuple(p["conv_b"].placements),
+                      None if prev is None else cpl),
+            out_specs=[cpl, None if prev is None else cpl])(
+                xi, p["conv_w"], p["conv_b"], prev)
 
     proj = u @ p["x_proj"].to(dt)                      # (B, S, dtr + 2n)
+    if ctx is not None:   # the contraction over sharded channels: reduce
+        proj = ctx.con(proj, "dp", None, None)
     dt_raw = proj[..., :dt_rank]
     Bmat = proj[..., dt_rank:dt_rank + d_state].float().contiguous()
     Cmat = proj[..., dt_rank + d_state:].float().contiguous()
@@ -146,19 +196,31 @@ def mamba_apply(
     else:
         h0 = torch.zeros((B, d_inner, d_state), dtype=torch.float32,
                          device=x.device)
-    if impl == "kernel":
-        y, h = ops.mamba_scan_op(delta, uf, A.float(), Bmat, Cmat, h0)
+    if ctx is None:
+        y, h = _scan(delta, uf, A, Bmat, Cmat, h0, impl=impl, chunk=chunk)
     else:
-        y, h = _chunked_selective_scan(delta, uf, A, Bmat, Cmat, h0, chunk)
+        from repro_torch.distributed.sharding import shard_map_compat
+
+        delta = ctx.con(delta, "dp", None, "tp")
+        uf = ctx.con(uf, "dp", None, "tp")
+        h0 = ctx.con(h0, "dp", "tp", None)
+        cpl, bpl = tuple(uf.placements), tuple(Bmat.placements)
+        y, h = shard_map_compat(
+            lambda *a: _scan(*a, impl=impl, chunk=chunk), mesh=ctx.mesh,
+            in_specs=(cpl, cpl, tuple(A.placements), bpl, bpl,
+                      tuple(h0.placements)),
+            out_specs=[cpl, tuple(h0.placements)])(
+                delta, uf, A, Bmat, Cmat, h0)
     y = y + uf * p["D"]
     y = y.to(dt) * F.silu(z)
+    if ctx is not None:
+        y = ctx.con(y, "dp", None, "tp")
     out = y @ p["out_proj"].to(dt)
+    if ctx is not None:
+        out = ctx.con(out, "dp", None, None)
 
     if cache is not None:
-        conv = cache["conv"]
-        # a copy of the tail, not a view of the (B, S + K - 1, C) concat
-        cache["conv"] = torch.cat([conv, xi.to(conv.dtype)],
-                                  dim=1)[:, -(conv_width - 1):].clone()
+        cache["conv"] = tail
         cache["h"] = h
     return out, cache
 

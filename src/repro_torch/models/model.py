@@ -19,6 +19,15 @@ frames (``embed_inputs=False``, hubert) ``frames`` (B, S, d), normed by
 ``in_norm``; for a VLM, ``vision_embeds`` (B, P, d) overwrite the first P
 token embeddings and ``positions`` (B, 3, S) carry M-RoPE's streams.  The
 MoE layers' aux losses sum over the stack into ``loss_fn``'s loss.
+
+Under a mesh (``LM(cfg, mesh=...)``, JAX ``model.py:32-53``) the model
+is SPMD over a ``DeviceMesh``, one process a rank: the parameters are
+DTensors placed by ``distributed.sharding.param_shardings``, the inputs
+(the whole batch on every rank, or DTensors) are split over the data
+axes, activations are DTensors constrained by ``LM.ctx`` as in JAX, the
+caches are placed by ``cache_shardings``, and K9, K10 and the MoE
+experts run on each rank's local shards.  With ``mesh=None`` every path
+computes what it computes without this option.
 """
 
 from __future__ import annotations
@@ -78,7 +87,9 @@ class LM(nn.Module):
                  cache_dtype=torch.bfloat16, kv_chunk: int = 1024,
                  mamba_chunk: int = 256, attn_impl: str = "chunked",
                  ssm_impl: str = "scan", remat: bool = True,
-                 ce_chunk: int = 512):
+                 ce_chunk: int = 512, mesh=None,
+                 dp_axes: tuple[str, ...] = ("data",),
+                 seq_shard: bool = False):
         super().__init__()
         if attn_impl not in ("chunked", "kernel"):
             raise ValueError(f"attn_impl {attn_impl!r}: 'chunked' or "
@@ -94,6 +105,25 @@ class LM(nn.Module):
         self.ssm_impl = ssm_impl
         self.remat = remat
         self.ce_chunk = ce_chunk
+        self.mesh = mesh
+        self.dp_axes = tuple(dp_axes)
+        self.seq_shard = seq_shard
+
+    @property
+    def ctx(self):
+        """The activation-constraint helper, or None without a mesh."""
+        if self.mesh is None:
+            return None
+        from repro_torch.distributed.sharding import ShardCtx
+
+        return ShardCtx(mesh=self.mesh, dp=self.dp_axes, tp="model",
+                        seq_shard=self.seq_shard)
+
+    def _input(self, x, *roles):
+        """A batch input or activation, constrained to ``roles`` under a
+        mesh (split over the data axes)."""
+        ctx = self.ctx
+        return x if ctx is None else ctx.con(x, *roles)
 
     def compute_params(self, params: dict[str, Any]) -> dict[str, Any]:
         """The compute-dtype copy of every >=2-D f32 parameter (1-D norm
@@ -147,17 +177,20 @@ class LM(nn.Module):
         loss, a 0-d f32 tensor, with ``with_aux``; else None, and no MoE
         layer computes it)."""
         cfg = self.cfg
+        ctx = self.ctx
         remat = self.remat and caches is None and torch.is_grad_enabled()
         aux_total = (torch.zeros((), dtype=torch.float32, device=x.device)
                      if with_aux else None)
         for i, p in enumerate(params["layers"]):
             def apply(x, p, i=i):
-                x, _, aux = layer_apply(
+                x, nc, aux = layer_apply(
                     cfg, cfg.layer_spec(i), p, x, positions,
                     cache=caches[i] if caches is not None else None,
                     cache_index=cache_index, kv_chunk=self.kv_chunk,
                     mamba_chunk=self.mamba_chunk, ssm_impl=self.ssm_impl,
-                    attn_impl=self.attn_impl, with_aux=with_aux)
+                    attn_impl=self.attn_impl, with_aux=with_aux, ctx=ctx)
+                if caches is not None:
+                    caches[i] = nc
                 return x, aux
             x, aux = (checkpoint(apply, x, p, use_reentrant=False) if remat
                       else apply(x, p))
@@ -173,25 +206,31 @@ class LM(nn.Module):
         dev = params["final_norm"].device
         dt = self.compute_dtype
         if not cfg.embed_inputs:
-            x = torch.as_tensor(batch["frames"], device=dev).to(dt)
+            x = self._input(torch.as_tensor(batch["frames"], device=dev),
+                            "dp", None, None).to(dt)
             return rms_norm(x, params["in_norm"], cfg.norm_eps)
-        tokens = torch.as_tensor(batch["tokens"], device=dev)
+        tokens = self._input(torch.as_tensor(batch["tokens"], device=dev),
+                             "dp", None)
         x = embed_lookup(params["embed"], tokens, dt)
         if cfg.vision_prefix and "vision_embeds" in batch:
-            ve = torch.as_tensor(batch["vision_embeds"], device=dev).to(dt)
+            ve = self._input(torch.as_tensor(batch["vision_embeds"],
+                                             device=dev),
+                             "dp", None, None).to(dt)
             x = torch.cat([ve, x[:, ve.shape[1]:]], dim=1)
-        return x
+        return self._input(x, "dp", "sp", None)
 
     def positions_for(self, batch: dict[str, Any], x: Tensor) -> Tensor:
         """``batch["positions"]`` ((B, 3, S) for M-RoPE) where given, else
         ``arange(S)`` for every row."""
         if "positions" in batch:
-            return torch.as_tensor(batch["positions"], device=x.device)
+            pos = torch.as_tensor(batch["positions"], device=x.device)
+            return self._input(pos, "dp", *(None,) * (pos.dim() - 1))
         if self.cfg.mrope_sections is not None:
             raise ValueError(f"{self.cfg.name}: M-RoPE needs "
                              "batch['positions'] of shape (B, 3, S)")
         B, S, _ = x.shape
-        return torch.arange(S, device=x.device).expand(B, S)
+        return self._input(torch.arange(S, device=x.device).expand(B, S),
+                           "dp", None)
 
     def head(self, params: dict[str, Any]) -> Tensor:
         if "head" in params:
@@ -201,7 +240,8 @@ class LM(nn.Module):
     def _logits(self, params: dict[str, Any], hidden: Tensor) -> Tensor:
         hidden = rms_norm(hidden, params["final_norm"], self.cfg.norm_eps)
         logits = (hidden @ self.head(params).to(hidden.dtype)).float()
-        return softcap(logits[:, 0, :], self.cfg.final_softcap)
+        logits = softcap(logits[:, 0, :], self.cfg.final_softcap)
+        return self._input(logits, "dp", None)
 
     # ------------------------------------------------------------------
     def loss_fn(self, params: dict[str, Any],
@@ -217,11 +257,12 @@ class LM(nn.Module):
                                        self.positions_for(batch, x),
                                        with_aux=True)
         hidden = rms_norm(hidden, params["final_norm"], cfg.norm_eps)
-        labels = torch.as_tensor(batch["labels"], device=x.device)
+        labels = self._input(torch.as_tensor(batch["labels"],
+                                             device=x.device), "dp", None)
         ce = chunked_cross_entropy(
             hidden, self.head(params), torch.clamp(labels, min=0),
             chunk=self.ce_chunk, final_softcap_val=cfg.final_softcap,
-            mask=labels >= 0)
+            mask=labels >= 0, ctx=self.ctx)
         return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
     @torch.no_grad()
@@ -235,6 +276,14 @@ class LM(nn.Module):
         x = self.embed(params, batch)
         B, S, _ = x.shape
         caches = self.init_caches(B, max_len or S, x.device)
+        if self.mesh is not None:
+            from repro_torch.distributed.sharding import (AxisRules,
+                                                          cache_shardings,
+                                                          shard_tree)
+
+            caches = shard_tree(caches, cache_shardings(
+                self.cfg, self.mesh, AxisRules(dp=self.dp_axes), caches,
+                batch=B))
         hidden, caches, _ = self.backbone(
             params, x, self.positions_for(batch, x), caches, 0)
         return self._logits(params, hidden[:, -1:, :]), caches, S
@@ -253,8 +302,9 @@ class LM(nn.Module):
         x = self.embed(params, {"tokens": tokens})
         B = x.shape[0]
         shape = (B, 3, 1) if cfg.mrope_sections is not None else (B, 1)
-        pos = torch.full(shape, cache_index, dtype=torch.long,
-                         device=x.device)
+        pos = self._input(torch.full(shape, cache_index, dtype=torch.long,
+                                     device=x.device),
+                          "dp", *(None,) * (len(shape) - 1))
         hidden, caches, _ = self.backbone(params, x, pos, caches,
                                           cache_index)
         return self._logits(params, hidden), caches

@@ -14,6 +14,12 @@ Guarantees:
   * **placement on restore**: every tensor goes to the device
     ``restore_checkpoint`` is given (default the card), whatever device
     saved it;
+  * **elasticity**: a sharded state (DTensors) is saved whole -- each
+    leaf gathered, as the reference's ``np.asarray`` gathers, written by
+    rank 0 while the others wait -- and ``restore_checkpoint(...,
+    shardings=)`` places each leaf on the *current* mesh, so the saving
+    and restoring meshes may differ (elastic scale-up/down, evicted
+    hosts);
   * **retention**: the ``keep`` newest checkpoints are retained,
     best-effort GC.
 """
@@ -29,12 +35,26 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import distribute, full, is_dtensor
 from repro_torch.tree import named_leaves, tree_unflatten
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
 
 
 def _to_numpy(leaf: Any) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach()
+        t = full(leaf.detach())
         if t.dtype == torch.bfloat16:
             t = t.float()
         return t.cpu().numpy()
@@ -51,15 +71,19 @@ def save_checkpoint(directory: str, step: int, state: Any, *,
                     extra: dict[str, Any] | None = None,
                     keep: int = 3) -> str:
     """Atomically write ``state`` (any tree of tensors and numbers) for
-    ``step``."""
-    os.makedirs(directory, exist_ok=True)
+    ``step``.  In a ``torch.distributed`` world every rank calls it (a
+    DTensor leaf is gathered by all); rank 0 writes."""
     final = os.path.join(directory, f"step_{step:08d}")
+    named = named_leaves(state)
+    arrays = {f"a{i}": _to_numpy(leaf) for i, (_, leaf) in enumerate(named)}
+    if _rank() != 0:
+        _barrier()
+        return final
+    os.makedirs(directory, exist_ok=True)
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
-    named = named_leaves(state)
-    arrays = {f"a{i}": _to_numpy(leaf) for i, (_, leaf) in enumerate(named)}
     np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
     manifest = {
         "step": step,
@@ -74,6 +98,7 @@ def save_checkpoint(directory: str, step: int, state: Any, *,
         shutil.rmtree(final)
     os.rename(tmp, final)                     # atomic publish
     _gc(directory, keep)
+    _barrier()
     return final
 
 
@@ -98,12 +123,16 @@ def latest_step(directory: str) -> int | None:
 
 
 def restore_checkpoint(directory: str, state_like: Any, *,
-                       step: int | None = None,
-                       device=None) -> tuple[Any, dict[str, Any]]:
+                       step: int | None = None, device=None,
+                       shardings: Any | None = None
+                       ) -> tuple[Any, dict[str, Any]]:
     """Restore into the structure of ``state_like`` (its leaf names must
     be the saved ones): tensors in the like-tree's dtypes on ``device``
-    (default the card), numbers as Python numbers.  Returns (state,
-    extra)."""
+    (default the card), numbers as Python numbers.  ``shardings`` (a tree
+    of ``distributed.sharding.NamedSharding`` matching ``state_like``'s
+    tensors, any of them None) places each leaf on its mesh -- the
+    elastic-restart path; a DTensor leaf of ``state_like`` without one
+    keeps its own placements.  Returns (state, extra)."""
     dev = resolve_device(device)
     step = step if step is not None else latest_step(directory)
     if step is None:
@@ -114,13 +143,24 @@ def restore_checkpoint(directory: str, state_like: Any, *,
     named = named_leaves(state_like)
     if [n for n, _ in named] != manifest["names"]:
         raise ValueError(f"{path}: tree structure mismatch")
+    placed = dict(named_leaves(shardings)) if shardings is not None else {}
     leaves = []
     with np.load(os.path.join(path, "arrays.npz")) as data:
-        for i, (_, like) in enumerate(named):
+        for i, (name, like) in enumerate(named):
             arr = data[f"a{i}"]
             if isinstance(like, torch.Tensor):
-                leaves.append(torch.from_numpy(np.array(arr)).to(
-                    device=dev, dtype=like.dtype))
+                t = torch.from_numpy(np.array(arr)).to(device=dev,
+                                                       dtype=like.dtype)
+                sh = placed.get(name)
+                if sh is not None:
+                    t = distribute(t, sh)
+                elif is_dtensor(like):
+                    from torch.distributed.tensor import distribute_tensor
+
+                    t = distribute_tensor(t, like.device_mesh,
+                                          like.placements,
+                                          src_data_rank=None)
+                leaves.append(t)
             else:
                 leaves.append(type(like)(arr.item()) if arr.ndim == 0
                               else arr)

@@ -20,6 +20,13 @@ shape.  ``opt_update`` updates the parameters and the state in place (a
 second copy of a full-size model's f32 parameters and moments would not
 fit beside the first on one card) and returns them; the gradients are
 only read.
+
+Sharded parameters (DTensors, ``distributed.sharding``) keep their
+placements: their gradients and moments are placed as they are
+(Adafactor's row and column moments as the dimensions they keep), and
+every reduction the reference makes over a whole leaf or tree (the
+global-norm clip, Adafactor's means and update RMS) reduces across the
+shards.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import full, is_dtensor, placed_as
 from repro_torch.tree import Stacked, tensors, tree_map, zeros_f32
 
 Tensor = torch.Tensor
@@ -56,7 +64,7 @@ def _lr_at(cfg: OptConfig, step: int) -> float:
 
 def global_norm(tree: Any) -> Tensor:
     """The L2 norm of every tensor of the tree, in f32."""
-    sq = [torch.sum(torch.square(t.float())) for t in tensors(tree)]
+    sq = [full(torch.sum(torch.square(t.float()))) for t in tensors(tree)]
     return torch.sqrt(torch.stack(sq).sum())
 
 
@@ -82,6 +90,11 @@ def _pairs(p, *rest):
     """``(tensor, matching tensors...)`` of a leaf: a ``Stacked`` leaf's
     members with row ``r`` of its state tensors (views)."""
     if isinstance(p, Stacked):
+        for x in rest:
+            if is_dtensor(x) and any(getattr(q, "dim", None) == 0
+                                     for q in x.placements):
+                raise ValueError("a stacked state tensor sharded on its "
+                                 "layer axis: its rows are not views")
         return [(m, *(x.members[r] if isinstance(x, Stacked) else x[r]
                       for x in rest)) for r, m in enumerate(p.members)]
     return [(p, *rest)]
@@ -134,9 +147,11 @@ def adamw_update(params: Any, grads: Any, state: dict[str, Any],
 
 def adafactor_init(params: Any) -> dict[str, Any]:
     def stats(p):
-        if p.dim() >= 2:
-            return {"vr": zeros_f32(p, p.shape[:-1]),
-                    "vc": zeros_f32(p, p.shape[:-2] + p.shape[-1:])}
+        n = p.dim()
+        if n >= 2:
+            return {"vr": zeros_f32(p, p.shape[:-1], range(n - 1)),
+                    "vc": zeros_f32(p, p.shape[:-2] + p.shape[-1:],
+                                    (*range(n - 2), n - 1))}
         return {"v": zeros_f32(p)}
 
     return {"stats": tree_map(stats, params)}
@@ -165,18 +180,18 @@ def adafactor_update(params: Any, grads: Any, state: dict[str, Any],
             rfac = vr / torch.clamp(torch.mean(vr, dim=-1, keepdim=True),
                                     min=eps)
             v = rfac[..., None] * vc[..., None, :]
-            st["vr"].copy_(vr)
-            st["vc"].copy_(vc)
+            st["vr"].copy_(placed_as(vr, st["vr"]))
+            st["vc"].copy_(placed_as(vc, st["vc"]))
         else:
             v = beta2 * st["v"] + (1 - beta2) * g2
-            st["v"].copy_(v)
+            st["v"].copy_(placed_as(v, st["v"]))
         u = gt / torch.sqrt(torch.clamp(v, min=eps))
         # update clipping (RMS <= 1) per the Adafactor paper
         rms = torch.sqrt(torch.mean(u * u))
         u = u / torch.clamp(rms, min=1.0)
         if pt.dim() >= 2:
             u = u + cfg.weight_decay * pt.float()
-        newp = (pt.float() - lr * u).to(pt.dtype)
+        newp = placed_as((pt.float() - lr * u).to(pt.dtype), pt)
         if stacked:
             p.write(newp)
         else:

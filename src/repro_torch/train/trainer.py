@@ -13,6 +13,12 @@ dict of ``Stacked`` per-layer tensors, after the ``first_dense`` prelude
 layers), so their per-leaf rules see the leaves the reference sees; the
 optimizer state and the compression error are in that layout, one tensor
 of the reference's shape a leaf.
+
+Under a mesh (``LM(cfg, mesh=...)``) the state is sharded
+(``shard_state``: the parameters by ``param_shardings``, the moments and
+the compression error as their parameters in the reference's layout),
+each gradient comes back in its parameter's placements, and the step's
+metrics are whole (replicated) tensors on every rank.
 """
 
 from __future__ import annotations
@@ -25,6 +31,9 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.distributed.compression import CompressionConfig, compress_grads
+from repro_torch.distributed.sharding import (AxisRules, NamedSharding, full,
+                                              param_shardings, placed_as,
+                                              shard_tree)
 from repro_torch.models.model import LM
 from repro_torch.train.optimizer import OptConfig, opt_init, opt_update
 from repro_torch.tree import (Stacked, tree_leaves, tree_map, tree_unflatten,
@@ -81,17 +90,68 @@ def init_state(model: LM, generator: torch.Generator | None,
                       err=err)
 
 
+def _stats_shardings(sh: NamedSharding, name: str) -> NamedSharding:
+    """Adafactor's factored moments keep their parameter's spec on the
+    dimensions they keep."""
+    spec = sh.spec
+    if name == "vr":
+        spec = spec[:-1]
+    elif name == "vc":
+        spec = spec[:-2] + spec[-1:]
+    return NamedSharding(sh.mesh, spec)
+
+
+def state_shardings(cfg: ArchConfig, mesh, rules: AxisRules,
+                    state: "TrainState", *, serve: bool = False) -> dict:
+    """``NamedSharding`` trees of a state's parts: ``{"params", "opt",
+    "err"}`` (``opt`` and ``err`` None when the state has none).  The
+    moments and the error follow their parameters in the reference's
+    layout (``reference_view``)."""
+    params = param_shardings(cfg, mesh, rules, state.params, serve=serve)
+    # a stacked moment row r is updated in place with layer r's tensor, so
+    # it takes that tensor's placements (a leading None), which for a
+    # shared expert's weight is not the reference's stacked spec
+    view = tree_map(lambda sh: NamedSharding(
+        mesh, (None,) + sh.members[0].spec) if isinstance(sh, Stacked) else sh,
+        reference_view(cfg, params))
+    opt = None
+    if state.opt is not None and "stats" in state.opt:
+        opt = {"stats": tree_map(
+            lambda sh, st: {k: _stats_shardings(sh, k) for k in st},
+            view, state.opt["stats"], is_leaf=lambda x: isinstance(
+                x, NamedSharding))}
+    elif state.opt is not None:
+        opt = {k: view for k in state.opt}
+    return {"params": params, "opt": opt,
+            "err": None if state.err is None else view}
+
+
+def shard_state(cfg: ArchConfig, mesh, rules: AxisRules, state: "TrainState",
+                *, serve: bool = False) -> "TrainState":
+    """``state`` (whole tensors, the same on every rank) as DTensors on
+    ``mesh``: the parameters placed by ``param_shardings``, the optimizer
+    moments and the compression error as their parameters."""
+    sh = state_shardings(cfg, mesh, rules, state, serve=serve)
+    return TrainState(
+        step=state.step, params=shard_tree(state.params, sh["params"]),
+        opt=None if state.opt is None else shard_tree(state.opt, sh["opt"]),
+        err=None if state.err is None else shard_tree(state.err, sh["err"]))
+
+
 def value_and_grad(model: LM, params: Any,
                    batch: dict[str, Any]) -> tuple[tuple[Tensor, dict], Any]:
     """``((loss, metrics), grads)`` of ``model.loss_fn``; ``grads`` has
-    ``params``' structure, f32 like the parameters."""
+    ``params``' structure, f32 like the parameters, and a DTensor
+    parameter's placements."""
     leaves = tree_leaves(params)
     with torch.enable_grad():
         xs = [p.detach().requires_grad_() for p in leaves]
         loss, metrics = model.loss_fn(tree_unflatten(params, xs), batch)
         grads = torch.autograd.grad(loss, xs)
-    return ((loss.detach(), {k: v.detach() for k, v in metrics.items()}),
-            tree_unflatten(params, list(grads)))
+    grads = [placed_as(g, x) for g, x in zip(grads, xs)]
+    return ((full(loss.detach()),
+             {k: full(v.detach()) for k, v in metrics.items()}),
+            tree_unflatten(params, grads))
 
 
 def make_train_step(

@@ -47,12 +47,28 @@ class Stacked:
             m.copy_(stacked[r])
 
 
-def zeros_f32(leaf: Tensor | Stacked, shape=None) -> Tensor:
+def zeros_f32(leaf: Tensor | Stacked, shape=None,
+              dims: tuple[int, ...] | None = None) -> Tensor:
     """f32 zeros of ``shape`` (default the leaf's, a ``Stacked`` leaf's
-    stacked shape) on the leaf's device."""
+    stacked shape) on the leaf's device.  For a DTensor leaf (or members)
+    the zeros are a DTensor placed as the leaf is: ``dims`` names the
+    leaf's dimensions that ``shape`` keeps, in order (default all), and a
+    dimension that is dropped is no longer sharded."""
+    from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                          distribute_tensor)
+
     lead = leaf.members[0] if isinstance(leaf, Stacked) else leaf
-    return torch.zeros(leaf.shape if shape is None else shape,
-                       dtype=torch.float32, device=lead.device)
+    z = torch.zeros(tuple(leaf.shape if shape is None else shape),
+                    dtype=torch.float32, device=lead.device)
+    if not isinstance(lead, DTensor):
+        return z
+    off = 1 if isinstance(leaf, Stacked) else 0
+    dims = tuple(range(len(leaf.shape))) if dims is None else tuple(dims)
+    pl = []
+    for q in lead.placements:
+        d = q.dim + off if isinstance(q, Shard) else None
+        pl.append(Shard(dims.index(d)) if d in dims else Replicate())
+    return distribute_tensor(z, lead.device_mesh, pl, src_data_rank=None)
 
 
 def _is_node(x: Any) -> bool:
