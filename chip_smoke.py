@@ -208,6 +208,18 @@
    and, for train-gemma, the model FLOPs (``train_flop_per_token``) and
    their utilisation of 989 TFLOP/s (with ``--profile``, a profile of one
    warm step of each stepped case);
+8a1. the dryrun phase (``run_dryrun_phase``, after the train path and
+   before ``init_world``, host only): ``launch.dryrun``'s memory dict over
+   a one-rank fake world on the meta device for train-gemma (the plain
+   routes), the gemma2-2b scoring prefill (the ``"bypass"`` attention
+   where the card runs K9) and one step of its decode request, held
+   against the card's readings of the same work (for the decode case,
+   the peak of one step after the prefill): state and cache bytes equal
+   exactly, the predicted peak at least ``DRYRUN_PEAK_MIN`` of
+   ``max_memory_allocated`` less what was resident before the request,
+   train-gemma's ``speed_of_light_s`` beside its warm step (the measured
+   roofline fraction), the phase within ``DRYRUN_LIMIT_S``; one
+   ``dryrun:`` line a case, with the card's name and power limit;
 8a. the sharded lm phase (``run_sharded_lm``, after ``init_world``; NCCL
    refuses two ranks on one card, so the collectives of a real mesh are
    emulated in one process, and tests/test_torch_sharded_lm.py runs them
@@ -2152,17 +2164,28 @@ def lm_greedy(torch, model, cparams, prompt, n_new: int, vocab: int):
     just after; checks the tokens.  Its prefill is timed on its own just
     before, as ``greedy_decode`` runs it (a ``DecodeSession`` with a cache
     of S + ``n_new``), and the steps' seconds are the rest of
-    ``greedy_decode``'s.  Returns (tokens, timings, counts, peak bytes)."""
+    ``greedy_decode``'s.  That session then takes one step with the peak
+    reset after its prefill: ``step_max_memory_allocated`` is the peak of
+    one decode step, what the dry-run's decode cell predicts (the whole
+    request's peak is its prefill's).  Returns (tokens, timings, counts,
+    peak bytes)."""
     from repro_torch.kernels import _build
     from repro_torch.serve import DecodeSession, greedy_decode
 
     sess = DecodeSession(model, cparams, max_len=prompt.shape[1] + n_new)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    sess.prefill({"tokens": prompt})
+    logits = sess.prefill({"tokens": prompt})
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
-    del sess
+    cache_bytes = sum(t.nbytes for c in sess.caches for t in c.values())
+    tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+    del logits
+    torch.cuda.reset_peak_memory_stats()
+    sess.step(tok)
+    torch.cuda.synchronize()
+    step_peak = torch.cuda.max_memory_allocated()
+    del sess, tok
     torch.cuda.reset_peak_memory_stats()
     _build.reset_counts()
     t0 = time.perf_counter()
@@ -2174,7 +2197,8 @@ def lm_greedy(torch, model, cparams, prompt, n_new: int, vocab: int):
     check(bool(((toks >= 0) & (toks < vocab)).all()),
           "greedy_decode: a token outside [0, vocab)")
     timings = {"greedy_decode_s": total_s, "prefill_s": prefill_s,
-               "decode_s": total_s - prefill_s}
+               "decode_s": total_s - prefill_s, "cache_bytes": cache_bytes,
+               "step_max_memory_allocated": step_peak}
     return toks, timings, counts, torch.cuda.max_memory_allocated()
 
 
@@ -2403,19 +2427,22 @@ def lm_step_checks(torch, label: str, cfg, params, cparams, prompt,
             "f32_first_step_vs_full_prefill_max_abs_err": err32}
 
 
-def run_lm_phase(torch, dev, profile: bool):
+def run_lm_phase(torch, dev, profile: bool, readings: dict | None = None):
     """The LM serve phase: gemma2-2b's scoring prefill and greedy decode,
     then falcon-mamba-7b's greedy decode and prefill, at full width in
     bf16, each request in its own launch-count window, with the route and
     first-step checks of ``lm_route_checks`` and ``lm_step_checks``.
     Returns the windows' counts and the recorded K9 (a local and a global
-    layer) and K10 inputs."""
+    layer) and K10 inputs; fills ``readings`` with gemma2-2b's memory
+    readings for the dryrun phase."""
     from repro_torch.kernels import ops
 
     windows, recs = {}, {}
+    readings = {} if readings is None else readings
     tol = {"f32": LM_F32_TOL, "bf16_max_abs": LM_BF16_MAX_ABS}
 
     # ---- gemma2-2b: prompt scoring (full cache, K9 in every layer) -----
+    resident = torch.cuda.memory_allocated()
     cfg, params, cp, gen = lm_weights(torch, dev, "gemma2-2b")
     kern = lm_models(torch, cfg, torch.bfloat16)["kernel"]
     tokens = torch.randint(0, cfg.vocab, (LM_SCORE["batch"],
@@ -2425,6 +2452,9 @@ def run_lm_phase(torch, dev, profile: bool):
     logits, caches, secs, counts, peak = lm_prefill(torch, kern, cp, tokens)
     rec.restore()
     recs["flash_attention"] = rec.calls         # layer 0 local, 1 global
+    readings["gemma-score"] = {
+        "peak": peak, "resident": resident,
+        "cache_bytes": sum(t.nbytes for c in caches for t in c.values())}
     del rec, caches
     windows["lm_score"] = counts
     check(counts["flash_attention"] == cfg.n_layers,
@@ -2449,6 +2479,9 @@ def run_lm_phase(torch, dev, profile: bool):
     toks, tm, counts, peak = lm_greedy(torch, kern, cp, prompt,
                                        LM_GEMMA["new"], cfg.vocab)
     windows["lm_gemma_decode"] = counts
+    readings["gemma-decode"] = {"peak": tm["step_max_memory_allocated"],
+                                "resident": resident,
+                                "cache_bytes": tm["cache_bytes"]}
     check(counts["flash_attention"] == 0, "gemma2-2b greedy_decode "
           f"launched K9 {counts['flash_attention']} times, expected 0")
     steps = lm_step_checks(torch, "gemma2-2b", cfg, params, cp, prompt,
@@ -3141,14 +3174,16 @@ def train_step_split(torch, model, state, batch, opt, label: str) -> None:
         {"value_and_grad_s": t1 - t0, "opt_update_s": t2 - t1}))
 
 
-def run_train_path(torch, dev, profile: bool):
+def run_train_path(torch, dev, profile: bool, readings: dict | None = None):
     """The train path: each case of ``TRAIN_CASES`` from seeded weights on
     the card -- the step-1 route check (``train_route_check``), then its
     AdamW steps, each synchronised, in the train launch-count window,
     where K9 (train-gemma) or K10 (train-falcon) must launch exactly twice
     a layer a step and nothing else may launch.  Prints one ``train
     path:`` line a case; returns the window's counts and each stepped
-    case's warm step seconds."""
+    case's warm step seconds, and fills ``readings`` with each stepped
+    case's state bytes, peak and what was resident before its state."""
+    from repro_torch.tree import tensors
     from repro_torch.configs import ARCHS
     from repro_torch.data import TokenPipeline
     from repro_torch.kernels import _build
@@ -3171,6 +3206,7 @@ def run_train_path(torch, dev, profile: bool):
         opt = OptConfig(**TRAIN_OPT)
         model = LM(cfg, compute_dtype=dtype, attn_impl="kernel",
                    ssm_impl="kernel")
+        resident = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
         if case["steps"]:
             state = init_state(model, gen, opt)
@@ -3222,6 +3258,11 @@ def run_train_path(torch, dev, profile: bool):
             window[k] += v
         warm = statistics.mean(walls[1:])
         warm_by_case[case["label"]] = warm
+        if readings is not None:
+            readings[case["label"]] = {
+                "peak": peak, "resident": resident, "warm_step_s": warm,
+                "state_bytes": sum(t.nbytes for t in tensors(
+                    (state.params, state.opt)))}
         tokens = case["batch"] * case["seq"]
         line.update(
             losses=losses, step_walls_s=walls, warm_step_s=warm,
@@ -3244,6 +3285,108 @@ def run_train_path(torch, dev, profile: bool):
         gc.collect()
         torch.cuda.empty_cache()
     return window, warm_by_case
+
+
+# ---------------------------------------------------------------------------
+# 8a1. the dryrun phase
+# ---------------------------------------------------------------------------
+
+# The dry-run (launch.dryrun) predicts, on the host and on the meta device,
+# what a step holds on each rank; here its functions run for three
+# requests the card has just served, over a one-rank fake world, and are
+# held against the card.  State and cache bytes must be equal exactly; the
+# predicted peak must not under-report the card's (the dry-run proves
+# fit), read as max_memory_allocated less what was resident on the card
+# before the request's weights were drawn; for the decode case the card's
+# reading is the peak of one step after the prefill (lm_greedy), the work
+# the dry-run's decode cell traces.
+DRYRUN_PEAK_MIN = 0.95
+DRYRUN_LIMIT_S = 60.0
+
+
+def run_dryrun_phase(torch, readings: dict) -> None:
+    """The ``dryrun`` phase: ``launch.dryrun``'s memory dict for
+    train-gemma (gemma2-2b full width, bf16, remat, AdamW, the plain
+    routes, as K9's autograd Function recomputes its backward through
+    them), the gemma2-2b 2 x 8192 scoring prefill (traced with the
+    ``"bypass"`` attention stand-in where the card runs K9, which keeps no
+    scores) and the gemma2-2b decode request's step (4 x (1024 + 32)
+    caches), each on a (1, 1) mesh; then train-gemma's roofline
+    (``cost_analysis.roofline``) beside its measured warm step.  One
+    ``dryrun:`` line a case."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.sharding import AxisRules
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t0 = time.perf_counter()
+    card = card_line()
+    cfg = ARCHS["gemma2-2b"]
+    tcase = TRAIN_CASES[0]
+    cases = {
+        "train-gemma": (ShapeConfig("train-gemma", tcase["seq"],
+                                    tcase["batch"], "train"), {}),
+        "gemma-score": (ShapeConfig("gemma-score", LM_SCORE["prompt"],
+                                    LM_SCORE["batch"], "prefill"),
+                        {"attn_bypass": True}),
+        "gemma-decode": (ShapeConfig(
+            "gemma-decode", LM_GEMMA["prompt"] + LM_GEMMA["new"],
+            LM_GEMMA["batch"], "decode"), {}),
+    }
+    lines = {}
+    with dryrun.fake_world(1):
+        mesh = make_host_mesh((1, 1), ("data", "model"), device_type="meta")
+        rules = AxisRules.for_mesh(mesh)
+        for label, (shape, kw) in cases.items():
+            got = readings[label]
+            mem = dryrun.peak_memory(cfg, shape, mesh, rules, **kw)
+            cell = dryrun.build_cell(cfg, shape, mesh, rules, **kw)
+            card_peak = got["peak"] - got["resident"]
+            line = {"card": card, "case": label, "shape": [
+                shape.global_batch, shape.seq_len, shape.kind],
+                "predicted": {k: mem[k] for k in (
+                    "argument_size_in_bytes", "output_size_in_bytes",
+                    "temp_size_in_bytes", "peak_bytes")},
+                "trace_s": mem["trace_s"], "depth": mem["depth"],
+                "card_max_memory_allocated": got["peak"],
+                "card_reading": ("one decode step after the prefill"
+                                 if shape.kind == "decode" else
+                                 "the whole request"),
+                "card_resident_before": got["resident"],
+                "card_request_peak": card_peak,
+                "peak_ratio": mem["peak_bytes"] / card_peak}
+            if shape.kind == "train":
+                state = cell.args[0]
+                pred = dryrun.local_bytes((state.params, state.opt))
+                line.update(predicted_state_bytes=pred,
+                            card_state_bytes=got["state_bytes"])
+                check(pred == got["state_bytes"], f"dryrun {label}: "
+                      f"predicted state {pred} B, the card's {got['state_bytes']}")
+                rf, _ = dryrun.cell_roofline(cfg, shape, mesh, rules, 1)
+                warm = got["warm_step_s"]
+                line.update(roofline=rf, warm_step_s=warm,
+                            measured_roofline_fraction=(
+                                rf["speed_of_light_s"] / warm))
+            else:
+                caches = (cell.args[1] if shape.kind == "decode" else
+                          cell.run()[1])
+                pred = dryrun.local_bytes(caches)
+                line.update(predicted_cache_bytes=pred,
+                            card_cache_bytes=got["cache_bytes"])
+                check(pred == got["cache_bytes"], f"dryrun {label}: "
+                      f"predicted caches {pred} B, the card's "
+                      f"{got['cache_bytes']}")
+            check(mem["peak_bytes"] >= DRYRUN_PEAK_MIN * card_peak,
+                  f"dryrun {label}: predicted peak {mem['peak_bytes']} "
+                  f"B under-reports the card's {card_peak} B")
+            lines[label] = line
+    secs = time.perf_counter() - t0
+    for line in lines.values():
+        line["phase_s"] = secs
+        print("dryrun: " + json.dumps(line))
+    check(secs <= DRYRUN_LIMIT_S, f"dryrun phase took {secs:.1f} s, over "
+          f"its {DRYRUN_LIMIT_S} s")
 
 
 # ---------------------------------------------------------------------------
@@ -5100,7 +5243,8 @@ def main() -> int:
         del ds, index, res, recs, lg_ds, lg_index, lg_recs, wd_recs, dn_recs
         gc.collect()
         torch.cuda.empty_cache()
-        lm_windows, lm_recs = run_lm_phase(torch, dev, profile)
+        readings = {}
+        lm_windows, lm_recs = run_lm_phase(torch, dev, profile, readings)
         phase("lm phase")
         fam_windows, fam_recs = run_lm_families(torch, dev, profile)
         lm_windows.update(fam_windows)
@@ -5113,7 +5257,7 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         phase("lm kernels")
-        tr_launches, tr_warm = run_train_path(torch, dev, profile)
+        tr_launches, tr_warm = run_train_path(torch, dev, profile, readings)
         for rec in kernels:
             if rec["name"] in LM_KERNELS:
                 rec["train_path_launches"] = tr_launches[rec["name"]]
@@ -5122,6 +5266,10 @@ def main() -> int:
                   if k not in LM_KERNELS) == 0,
               f"train path: a search kernel launched: {tr_launches}")
         phase("train path")
+        # before init_world: the dry-run's fake world is the process's
+        # default group while it lasts
+        run_dryrun_phase(torch, readings)
+        phase("dryrun")
         # the distributed paths come after every device_ms measurement:
         # a short profiler session after the paper path saw no kernel
         # (four calls on the H100 machine, with the sessions primed and

@@ -7,6 +7,15 @@ caller runs ``torch.distributed.init_process_group`` with its address,
 world size and rank (gloo for a ``"cpu"`` mesh, NCCL for a ``"cuda"``
 one), since nothing tells a process of a cluster.
 
+``device_type="meta"`` is the dry-run's mesh (``launch.dryrun``): a world
+of the ``fake`` backend (``torch.testing._internal.distributed.fake_pg``),
+256 or 512 ranks in one process, whose tensors live on the meta device.
+Its collectives move nothing, so it serves no real tensor: a ``"cpu"`` or
+``"cuda"`` mesh refuses a fake world, and a ``"meta"`` mesh a real one.
+The ``DeviceMesh`` itself is of type ``"cuda"``, so DTensor picks its
+redistributions as on the card (``all_to_all``, where a CPU mesh falls
+back to a gather) and needs no card to do so.
+
 ``make_production_mesh`` is the deployment mesh of the sharding rules
 (``distributed.sharding``): a (16, 16) ``("data", "model")`` pod of 256
 ranks, or two pods (2, 16, 16) with a leading pure-DP ``pod`` axis, 512
@@ -26,7 +35,7 @@ from repro_torch.device import resolve_device
 
 # the backend each mesh device type runs its collectives on; there is no
 # fallback from one to the other
-BACKENDS = {"cpu": "gloo", "cuda": "nccl"}
+BACKENDS = {"cpu": "gloo", "cuda": "nccl", "meta": "fake"}
 
 
 def make_host_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *,
@@ -36,15 +45,16 @@ def make_host_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *,
 
     ``device_type="cuda"`` (the default) needs a card and a world whose
     default group runs NCCL, and puts rank ``r`` on card ``r % count``;
-    ``"cpu"`` needs gloo.  Raises when the world is not initialised, its
-    size is not ``prod(shape)``, or its backend does not serve
-    ``device_type``.
+    ``"cpu"`` needs gloo, ``"meta"`` the fake backend.  Raises when the
+    world is not initialised, its size is not ``prod(shape)``, or its
+    backend does not serve ``device_type``.
     """
     from torch.distributed.device_mesh import init_device_mesh
 
     shape, axes = tuple(int(s) for s in shape), tuple(axes)
     if device_type not in BACKENDS:
-        raise ValueError(f"device_type {device_type!r}: use 'cuda' or 'cpu'")
+        raise ValueError(f"device_type {device_type!r}: use 'cuda', 'cpu' "
+                         "or 'meta'")
     if len(shape) != len(axes):
         raise ValueError(f"shape {shape} and axes {axes} differ in length")
     if device_type == "cuda":
@@ -65,7 +75,8 @@ def make_host_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *,
                            f"{dist.get_world_size()}")
     if device_type == "cuda":
         torch.cuda.set_device(dist.get_rank() % torch.cuda.device_count())
-    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
+    return init_device_mesh("cuda" if device_type == "meta" else device_type,
+                            shape, mesh_dim_names=axes)
 
 
 def make_production_mesh(*, multi_pod: bool = False,

@@ -4,7 +4,10 @@ softcaps, RoPE and KV-cache decode (port of ``repro.models.attention``).
 Two sites send attention through the K9 op (``impl="kernel"``, the
 counterpart of JAX's ``"pallas"``), as in the JAX package: self-attention
 without a cache, and a prefill that fills the whole cache (``S ==
-Smax``), where attention over the cache is self-attention.  Every other
+Smax``), where attention over the cache is self-attention.  At the same
+two sites ``impl="bypass"`` is the dry-run's stand-in for K9 (JAX's
+``"bypass"``, ``launch.dryrun``): the output's shape with no scores, as
+K9 keeps none in memory; it computes no attention.  Every other
 call (a prefill into a longer cache, every decode step) runs the plain
 online-softmax attention over the cache with the unwritten slots masked.
 With ``mrope_sections`` (Qwen2-VL) q and k are rotated by M-RoPE's three
@@ -61,6 +64,14 @@ def _kv_for_heads(t: Tensor, hl: int, n_heads: int, n_kv_heads: int,
     return t[:, :, idx]
 
 
+def _bypass(v: Tensor, hl: int, positions: Tensor) -> Tensor:
+    """The dry-run's stand-in for attention (JAX ``impl="bypass"``): the
+    output's shape and dtype, each q head a copy of its kv head's ``v``
+    times one, and no scores."""
+    one = (positions[..., None, None] * 0 + 1).to(v.dtype)
+    return torch.repeat_interleave(v, hl // v.shape[2], dim=2) * one
+
+
 def _attend(q: Tensor, k: Tensor, v: Tensor, positions: Tensor,
             ck: Tensor | None, cv: Tensor | None, *, n_heads: int,
             n_kv_heads: int, rank: int, causal: bool, window: int | None,
@@ -88,6 +99,8 @@ def _attend(q: Tensor, k: Tensor, v: Tensor, positions: Tensor,
         if impl == "kernel":
             out = ops.flash_attention_op(q, heads(k), heads(v), causal,
                                          window, score_cap)
+        elif impl == "bypass":
+            out = _bypass(heads(v), hl, positions)
         else:
             out = flash_attention_ref(q, heads(k), heads(v), causal, window,
                                       score_cap, q_pos=positions,
@@ -101,6 +114,8 @@ def _attend(q: Tensor, k: Tensor, v: Tensor, positions: Tensor,
         # over this call's (un-cast) k and v
         out = ops.flash_attention_op(q, heads(k), heads(v), causal, window,
                                      score_cap)
+    elif S == Smax and impl == "bypass":
+        out = _bypass(heads(v), hl, positions)
     else:
         slot_pos = torch.arange(Smax, device=q.device)
         kv_valid = (slot_pos < cache_index + S)[None, :].expand(B, Smax)
@@ -139,7 +154,7 @@ def attn_apply(
     cache: dict[str, Tensor] | None = None,
     cache_index: int | None = None,
     kv_chunk: int = 1024,
-    impl: str = "chunked",   # "chunked" | "kernel"
+    impl: str = "chunked",   # "chunked" | "kernel" | "bypass" (dry-run)
     ctx=None,
 ) -> tuple[Tensor, dict[str, Tensor] | None]:
     """Self-attention (prefill) or cached decode step.
@@ -157,7 +172,7 @@ def attn_apply(
     of its q heads.  The cache is redistributed to k's placement for the
     write, and back to its own after.
     """
-    if impl not in ("chunked", "kernel"):
+    if impl not in ("chunked", "kernel", "bypass"):
         raise ValueError(f"unknown attention impl {impl!r}")
     B, S, _ = x.shape
     dt = x.dtype

@@ -60,6 +60,7 @@ def layer_apply(
     mamba_chunk: int = 256,
     ssm_impl: str = "scan",
     attn_impl: str = "chunked",
+    mamba_scan_dtype: torch.dtype | None = None,
     with_aux: bool = False,
     ctx=None,
 ) -> tuple[Tensor, dict[str, Tensor] | None, Tensor | None]:
@@ -81,7 +82,8 @@ def layer_apply(
         out, new_cache = mamba_apply(
             p["mamba"], h, d_state=cfg.ssm_state, conv_width=cfg.conv_width,
             chunk=mamba_chunk, cache=cache,
-            impl=ssm_impl if x.shape[1] > 1 else "scan", ctx=ctx,
+            impl=ssm_impl if x.shape[1] > 1 else "scan",
+            scan_dtype=mamba_scan_dtype or torch.float32, ctx=ctx,
         )
     x = x + out
     aux = None

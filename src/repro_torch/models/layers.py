@@ -35,6 +35,8 @@ def lecun_normal(shape: tuple[int, ...], generator: torch.Generator,
     the last (a stack of experts ``(E, d, f)`` has ``fan_in = E d``)."""
     std = math.sqrt(shape[-1] / math.prod(shape)) / _TRUNC_STD
     t = torch.empty(shape, dtype=torch.float32, device=device)
+    if t.is_meta:   # shapes only: nothing to draw
+        return t
     return torch.nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std,
                                        generator=generator)
 
@@ -43,7 +45,7 @@ def normal(shape: tuple[int, ...], std: float, generator: torch.Generator,
            device: torch.device) -> Tensor:
     """``jax.nn.initializers.normal(std)``."""
     t = torch.empty(shape, dtype=torch.float32, device=device)
-    return t.normal_(0.0, std, generator=generator)
+    return t if t.is_meta else t.normal_(0.0, std, generator=generator)
 
 
 def rms_norm(x: Tensor, scale: Tensor, eps: float = 1e-6) -> Tensor:

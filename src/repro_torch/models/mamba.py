@@ -4,9 +4,11 @@ The selective scan has two routes, as in the JAX package: ``"scan"``, a
 chunked linear recurrence (a loop over sequence chunks carrying the
 ``(B, d_inner, n)`` state, a log-depth prefix scan inside each chunk),
 and ``"kernel"`` (JAX's ``"pallas"``), the K10 op, which keeps the state
-on chip for the whole sequence.  The depthwise causal conv is shifted
-adds, with the previous segment's tail from the cache.  ``A = -exp(A_log)``,
-softplus in f32, and the state ``h`` in f32 in the cache.  Under a mesh
+on chip for the whole sequence; ``"bypass"`` is the dry-run's stand-in
+for K10 (JAX's ``"bypass"``, ``launch.dryrun``), shapes with no
+recurrence.  The depthwise causal conv is shifted adds, with the
+previous segment's tail from the cache.  ``A = -exp(A_log)``, softplus
+in f32, and the state ``h`` in f32 in the cache.  Under a mesh
 the channels shard over tp and the conv and the scan run on each rank's
 channels (``mamba_apply``).
 """
@@ -73,12 +75,15 @@ def _prefix_scan(a: Tensor, b: Tensor) -> tuple[Tensor, Tensor]:
 
 
 def _scan_chunk(d: Tensor, uu: Tensor, A: Tensor, bm: Tensor, cm: Tensor,
-                h: Tensor) -> tuple[Tensor, Tensor]:
-    """One chunk of the recurrence from state h: (y (B, T, C), last h)."""
-    a = torch.exp(d[..., None] * A)                        # (B, T, C, N)
-    b = (d * uu)[..., None] * bm[:, :, None, :]
+                h: Tensor, scan_dtype: torch.dtype = torch.float32
+                ) -> tuple[Tensor, Tensor]:
+    """One chunk of the recurrence from state h: (y (B, T, C), last h).
+    The prefix scan runs in ``scan_dtype`` (JAX ``mamba.py:119-120``); the
+    state is carried in f32."""
+    a = torch.exp(d[..., None] * A).to(scan_dtype)         # (B, T, C, N)
+    b = ((d * uu)[..., None] * bm[:, :, None, :]).to(scan_dtype)
     a_pre, b_pre = _prefix_scan(a, b)
-    h_t = a_pre * h[:, None] + b_pre                       # (B, T, C, N)
+    h_t = a_pre.float() * h[:, None] + b_pre.float()       # (B, T, C, N)
     # a copy, not a view: the state outlives the chunk in the cache, and
     # a view would keep the whole (B, T, C, N) chunk alive
     return torch.einsum("btcn,btn->btc", h_t, cm), h_t[:, -1].clone()
@@ -86,11 +91,16 @@ def _scan_chunk(d: Tensor, uu: Tensor, A: Tensor, bm: Tensor, cm: Tensor,
 
 def _chunked_selective_scan(delta: Tensor, u: Tensor, A: Tensor,
                             Bmat: Tensor, Cmat: Tensor, h0: Tensor,
-                            chunk: int) -> tuple[Tensor, Tensor]:
+                            chunk: int,
+                            scan_dtype: torch.dtype = torch.float32
+                            ) -> tuple[Tensor, Tensor]:
     """Linear recurrence ``h_t = exp(delta_t A) h_{t-1} + delta_t u_t B_t``
     over chunks of ``chunk`` steps; the ``(B, chunk, C, N)`` discretised
-    tensors exist for one chunk at a time.  Under autograd each chunk runs
-    in ``torch.utils.checkpoint``, as the reference checkpoints its chunk
+    tensors exist for one chunk at a time.  ``scan_dtype=torch.bfloat16``
+    halves the prefix scan's traffic (a dry-run lever, JAX's
+    ``scan_dtype``); the state is re-accumulated in f32 at each chunk's
+    boundary.  Under autograd each chunk runs in
+    ``torch.utils.checkpoint``, as the reference checkpoints its chunk
     body, so its backward too holds one chunk's tensors at a time.
     Returns (y (B, S, C) f32 with ``y_t = <h_t, C_t>``, final state h)."""
     S = delta.shape[1]
@@ -101,7 +111,8 @@ def _chunked_selective_scan(delta: Tensor, u: Tensor, A: Tensor,
     ys = []
     for s0 in range(0, S, chunk):
         args = (delta[:, s0:s0 + chunk], u[:, s0:s0 + chunk], A,
-                Bmat[:, s0:s0 + chunk], Cmat[:, s0:s0 + chunk], h)
+                Bmat[:, s0:s0 + chunk], Cmat[:, s0:s0 + chunk], h,
+                scan_dtype)
         y, h = (checkpoint(_scan_chunk, *args, use_reentrant=False) if grad
                 else _scan_chunk(*args))
         ys.append(y)
@@ -122,10 +133,17 @@ def _conv_silu(xi: Tensor, w: Tensor, b: Tensor, prev: Tensor | None,
 
 
 def _scan(delta: Tensor, uf: Tensor, A: Tensor, Bmat: Tensor, Cmat: Tensor,
-          h0: Tensor, *, impl: str, chunk: int):
+          h0: Tensor, *, impl: str, chunk: int, scan_dtype: torch.dtype):
     if impl == "kernel":
         return ops.mamba_scan_op(delta, uf, A.float(), Bmat, Cmat, h0)
-    return _chunked_selective_scan(delta, uf, A, Bmat, Cmat, h0, chunk)
+    if impl == "bypass":
+        # the dry-run's stand-in (JAX "bypass"): shapes and dtypes, no
+        # recurrence
+        y = delta * uf * torch.sum(Bmat * Cmat, -1, keepdim=True)
+        h = h0 + torch.einsum("bsc,bsn->bcn", delta * uf, Bmat) * 0.0
+        return y, h
+    return _chunked_selective_scan(delta, uf, A, Bmat, Cmat, h0, chunk,
+                                   scan_dtype)
 
 
 def mamba_apply(
@@ -136,7 +154,8 @@ def mamba_apply(
     conv_width: int = 4,
     chunk: int = 256,
     cache: dict[str, Tensor] | None = None,
-    impl: str = "scan",             # "scan" | "kernel"
+    impl: str = "scan",             # "scan" | "kernel" | "bypass" (dry-run)
+    scan_dtype: torch.dtype = torch.float32,
     ctx=None,
 ) -> tuple[Tensor, dict[str, Tensor] | None]:
     """Mamba-1 mixer.  With ``cache`` (dict h/conv) it runs as an
@@ -151,7 +170,7 @@ def mamba_apply(
     and ``x_proj``'s contraction over the sharded channels is reduced
     before dt, B and C are read.
     """
-    if impl not in ("scan", "kernel"):
+    if impl not in ("scan", "kernel", "bypass"):
         raise ValueError(f"unknown ssm impl {impl!r}")
     B, S, _ = x.shape
     dt = x.dtype
@@ -197,7 +216,8 @@ def mamba_apply(
         h0 = torch.zeros((B, d_inner, d_state), dtype=torch.float32,
                          device=x.device)
     if ctx is None:
-        y, h = _scan(delta, uf, A, Bmat, Cmat, h0, impl=impl, chunk=chunk)
+        y, h = _scan(delta, uf, A, Bmat, Cmat, h0, impl=impl, chunk=chunk,
+                     scan_dtype=scan_dtype)
     else:
         from repro_torch.distributed.sharding import shard_map_compat
 
@@ -206,7 +226,8 @@ def mamba_apply(
         h0 = ctx.con(h0, "dp", "tp", None)
         cpl, bpl = tuple(uf.placements), tuple(Bmat.placements)
         y, h = shard_map_compat(
-            lambda *a: _scan(*a, impl=impl, chunk=chunk), mesh=ctx.mesh,
+            lambda *a: _scan(*a, impl=impl, chunk=chunk,
+                             scan_dtype=scan_dtype), mesh=ctx.mesh,
             in_specs=(cpl, cpl, tuple(A.placements), bpl, bpl,
                       tuple(h0.placements)),
             out_specs=[cpl, tuple(h0.placements)])(

@@ -12,7 +12,11 @@ caches runs under ``torch.utils.checkpoint`` when autograd records it, so
 the backward recomputes it instead of keeping its activations.
 ``attn_impl="kernel"`` and ``ssm_impl="kernel"`` (JAX's ``"pallas"``)
 route through the K9 and K10 ops, differentiable through their autograd
-Functions; ``"chunked"`` and ``"scan"`` run the plain versions.
+Functions; ``"chunked"`` and ``"scan"`` run the plain versions, and
+``"bypass"`` the dry-run's stand-ins for the kernels (``launch.dryrun``;
+they compute no attention and no recurrence).  ``mamba_scan_dtype``
+(default f32) is the plain scan's prefix-scan dtype, JAX's
+``mamba_scan_dtype``.
 
 Inputs, as in the JAX package: ``tokens`` (B, S); for an encoder over
 frames (``embed_inputs=False``, hubert) ``frames`` (B, S, d), normed by
@@ -89,13 +93,15 @@ class LM(nn.Module):
                  ssm_impl: str = "scan", remat: bool = True,
                  ce_chunk: int = 512, mesh=None,
                  dp_axes: tuple[str, ...] = ("data",),
-                 seq_shard: bool = False):
+                 seq_shard: bool = False,
+                 mamba_scan_dtype: torch.dtype | None = None):
         super().__init__()
-        if attn_impl not in ("chunked", "kernel"):
-            raise ValueError(f"attn_impl {attn_impl!r}: 'chunked' or "
-                             "'kernel'")
-        if ssm_impl not in ("scan", "kernel"):
-            raise ValueError(f"ssm_impl {ssm_impl!r}: 'scan' or 'kernel'")
+        if attn_impl not in ("chunked", "kernel", "bypass"):
+            raise ValueError(f"attn_impl {attn_impl!r}: 'chunked', "
+                             "'kernel' or 'bypass'")
+        if ssm_impl not in ("scan", "kernel", "bypass"):
+            raise ValueError(f"ssm_impl {ssm_impl!r}: 'scan', 'kernel' or "
+                             "'bypass'")
         self.cfg = cfg
         self.compute_dtype = compute_dtype
         self.cache_dtype = cache_dtype
@@ -108,6 +114,7 @@ class LM(nn.Module):
         self.mesh = mesh
         self.dp_axes = tuple(dp_axes)
         self.seq_shard = seq_shard
+        self.mamba_scan_dtype = mamba_scan_dtype
 
     @property
     def ctx(self):
@@ -136,15 +143,17 @@ class LM(nn.Module):
              device=None, dtype: torch.dtype | None = None
              ) -> dict[str, Any]:
         """Random f32 parameters drawn from ``generator`` on ``device``
-        (default: the generator's device, else CUDA).  With ``dtype``, the
-        same draws come back as ``compute_params`` in ``dtype`` would make
-        them, each part cast as soon as it is drawn: the f32 tree is never
-        whole, so a model whose f32 weights and compute copy do not fit
-        the device together can still be served."""
+        (default: the generator's device, else CUDA); on ``"meta"`` nothing
+        is drawn, and the tensors have the same shapes and dtypes.  With
+        ``dtype``, the same draws come back as ``compute_params`` in
+        ``dtype`` would make them, each part cast as soon as it is drawn:
+        the f32 tree is never whole, so a model whose f32 weights and
+        compute copy do not fit the device together can still be
+        served."""
         if device is None and generator is not None:
             device = generator.device
         dev = resolve_device(device)
-        if generator is None:
+        if generator is None and dev.type != "meta":
             generator = torch.Generator(device=dev).manual_seed(0)
 
         def part(x):
@@ -188,7 +197,9 @@ class LM(nn.Module):
                     cache=caches[i] if caches is not None else None,
                     cache_index=cache_index, kv_chunk=self.kv_chunk,
                     mamba_chunk=self.mamba_chunk, ssm_impl=self.ssm_impl,
-                    attn_impl=self.attn_impl, with_aux=with_aux, ctx=ctx)
+                    attn_impl=self.attn_impl,
+                    mamba_scan_dtype=self.mamba_scan_dtype,
+                    with_aux=with_aux, ctx=ctx)
                 if caches is not None:
                     caches[i] = nc
                 return x, aux
@@ -276,14 +287,6 @@ class LM(nn.Module):
         x = self.embed(params, batch)
         B, S, _ = x.shape
         caches = self.init_caches(B, max_len or S, x.device)
-        if self.mesh is not None:
-            from repro_torch.distributed.sharding import (AxisRules,
-                                                          cache_shardings,
-                                                          shard_tree)
-
-            caches = shard_tree(caches, cache_shardings(
-                self.cfg, self.mesh, AxisRules(dp=self.dp_axes), caches,
-                batch=B))
         hidden, caches, _ = self.backbone(
             params, x, self.positions_for(batch, x), caches, 0)
         return self._logits(params, hidden[:, -1:, :]), caches, S
@@ -312,8 +315,21 @@ class LM(nn.Module):
     forward = prefill
 
     def init_caches(self, batch: int, max_len: int, device=None) -> list:
-        """One decode-state dict per layer."""
+        """One decode-state dict per layer; under a mesh each is placed by
+        ``cache_shardings`` as soon as it is made, so a rank never holds
+        more than one layer's whole cache (JAX's jitted prefill never
+        makes them whole)."""
         cfg = self.cfg
-        return [init_layer_cache(cfg, cfg.layer_spec(i), batch, max_len,
+        caches = []
+        for i in range(cfg.n_layers):
+            c = init_layer_cache(cfg, cfg.layer_spec(i), batch, max_len,
                                  self.cache_dtype, device)
-                for i in range(cfg.n_layers)]
+            if self.mesh is not None:
+                from repro_torch.distributed.sharding import (
+                    AxisRules, cache_shardings, shard_tree)
+
+                c = shard_tree(c, cache_shardings(
+                    cfg, self.mesh, AxisRules(dp=self.dp_axes), c,
+                    batch=batch))
+            caches.append(c)
+        return caches

@@ -1268,3 +1268,33 @@ def test_moe_vlm_audio_prefill_on_the_card_equals_the_cpu(dev, name):
     assert _build.counts()["flash_attention_f32"] == mixers.count("attn")
     assert _build.counts()["mamba_scan"] == mixers.count("mamba")
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+def test_dryrun_state_bytes_equal_the_cards(dev):
+    """The dry-run's state bytes (``launch.dryrun``, traced on the meta
+    device over a one-rank fake world) for train-gemma at 2 layers, full
+    width, AdamW, equal the sum of ``nbytes`` of the same state built on
+    the card."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.sharding import AxisRules
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import LM
+    from repro_torch.train import OptConfig, init_state
+    from repro_torch.tree import tensors
+
+    cfg = dataclasses.replace(ARCHS["gemma2-2b"], n_layers=2)
+    state = init_state(LM(cfg), torch.Generator(device=dev).manual_seed(0),
+                       OptConfig())
+    card = sum(t.nbytes for t in tensors((state.params, state.opt)))
+    del state
+    with dryrun.fake_world(1):
+        mesh = make_host_mesh((1, 1), ("data", "model"), device_type="meta")
+        cell = dryrun.build_cell(cfg, ShapeConfig("t", 8192, 1, "train"),
+                                 mesh, AxisRules.for_mesh(mesh))
+        pred = dryrun.local_bytes((cell.args[0].params, cell.args[0].opt))
+    assert dryrun.opt_config_for(cfg).name == OptConfig().name == "adamw"
+    assert pred == card

@@ -183,7 +183,9 @@ def test_distributed_modules_and_examples_import_no_jax():
         "import sys, repro_torch.search.distributed, repro_torch.launch.mesh, "
         "repro_torch.configs.paper_dtw, repro_torch.testing.faults, "
         "repro_torch.train, repro_torch.data.tokens, "
-        "repro_torch.distributed.compression, repro_torch.models.convert; "
+        "repro_torch.distributed.compression, repro_torch.models.convert, "
+        "repro_torch.launch.dryrun, repro_torch.launch.report, "
+        "repro_torch.launch.cost_analysis; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]; "
         "print(bad); sys.exit(1 if bad else 0)")
