@@ -10,6 +10,12 @@
                                      # (7 and 7a), with their checks; no
                                      # result lines (with --profile, their
                                      # profiles)
+    python3 chip_smoke.py --shapes-only  # only the build, train-moe (7b)
+                                     # and the shapes phase (8a1b), with
+                                     # their sizing and checks; no result
+                                     # lines (with --profile, a profile of
+                                     # the gemma2-2b prefill_32k cell and
+                                     # of a train-moe step)
 
 1. prints the card (``nvidia-smi`` name and power limit) and builds the
    nine CUDA sources of K1-K10 from ``src/repro_torch/csrc`` (``nvcc``,
@@ -157,13 +163,18 @@
    blocks of 7, and in the slots form's cluster of two blocks (wb = 8300,
    17 warps), K4 and K6 with cutoffs and without; K1, K2 (both
    forms) and K3 (both forms) also at the long path's inputs; K5 in each of its
-   three forms, forced over the sweep and just over the K4/K5 crossover,
-   form (a) also on the long path's largest round with its cutoffs and
-   without and on pairs of all its rounds, (a) and (b) at their edge (L =
-   20480 and 20481, w = L), (b) at L = 65536, w = L in clusters of 3, 4
-   and 8 blocks and at its widest band (wb = 231423, 8 blocks, a cutoff
-   that abandons at the first check), (c) at L = 65536 and timed on the
-   largest round; K6 at the main path's K4 inputs; K1 at L = 65536 with w
+   three forms just over the K4/K5 crossover (a plain run without
+   cutoffs, whose values set cutoffs that spare one pair and kill the
+   other mid-sweep in a second plain run), on the long
+   path's largest round with its cutoffs (form (a), and (b) and (c)
+   forced) and form (a) on pairs of all its rounds, (a) at its edge (L =
+   20480, w = L), (b) and (c) just past it (L = 20481; (b) in its 2
+   blocks and in 3, 4 and 8; one plain run with cutoffs from the kernel's
+   values at each), (b) at L = 65536, w = L timed in clusters of 3, 4
+   and 8 blocks and (c) there, each held against one pair's plain run,
+   and at its widest
+   band (wb = 231423, 8 blocks, a cutoff that abandons at the first
+   check); K6 at the main path's K4 inputs; K1 at L = 65536 with w
    in {655, 65536}. Envelopes, banded DTW (K4, K5, K6), the bands-only
    LB_ENHANCED and the sketch bound must be bit-equal, with the same +-inf
    positions; the full LB_ENHANCED forms and LB_Keogh agree to rtol 1e-5,
@@ -198,16 +209,27 @@
    AdamW at ``TRAIN_OPT``: train-gemma (gemma2-2b unmodified, bf16,
    remat, B = 1, S = 8192, 3 steps; K9 exactly 2 x 26 a step, the
    forward and remat's recompute), train-gemma-f32 (its width cut to 2
-   layers, f32, one step's gradients; K9's f32-arithmetic form 2 x 2) and
+   layers, f32, one step's gradients; K9's f32-arithmetic form 2 x 2),
    train-falcon (falcon-mamba-7b at full width cut to 16 layers, S =
-   2048, 3 steps; K10 2 x 16 a step); no other kernel may launch.  Step
-   1's loss and gradients on the kernel route are held against the plain
-   route (``TRAIN_BF16_TOL``, ``TRAIN_F32_LEAF_REL_L2``), every loss must
-   be finite; one ``train path:`` line a case with the losses, warm step
+   2048, 3 steps; K10 2 x 16 a step) and train-moe (qwen2-moe-a2.7b's
+   train_4k at full width, bf16, remat, S = 4096, 3 steps, its depth and
+   batch sized by the dry-run (``start_sizing``: the largest depth that
+   fits at batch 1 within ``SHAPES_MEM_SHARE`` of the card, then the
+   largest batch there); K9 2 a layer a step); no other kernel may
+   launch.  Step 1's loss and gradients on the kernel route are held
+   against the plain route (``TRAIN_BF16_TOL``, ``TRAIN_F32_LEAF_REL_L2``)
+   on parameters drawn before the optimizer state (the state is then
+   drawn again from the same seed), and for a model with MoE layers the
+   kernel route against itself run again (the routing's accumulating
+   backwards: the drift held to ``TRAIN_BF16_TOL``); every loss must be
+   finite; one ``train path:`` line a case with the losses, warm step
    wall, tokens/s, peak memory, each leaf's relative L2 gradient error
-   and, for train-gemma, the model FLOPs (``train_flop_per_token``) and
-   their utilisation of 989 TFLOP/s (with ``--profile``, a profile of one
-   warm step of each stepped case);
+   and, but for train-falcon, the model FLOPs (``train_flop_per_token``,
+   the routed experts only) and their utilisation of 989 TFLOP/s;
+   train-moe's predicted state bytes must equal the card's and its
+   predicted peak be at least ``DRYRUN_PEAK_MIN`` of the card's (one
+   ``shapes:`` line) (with ``--profile``, a profile of one warm step of
+   each stepped case);
 8a1. the dryrun phase (``run_dryrun_phase``, after the train path and
    before ``init_world``, host only): ``launch.dryrun``'s memory dict over
    a one-rank fake world on the meta device for train-gemma (the plain
@@ -220,6 +242,34 @@
    train-gemma's ``speed_of_light_s`` beside its warm step (the measured
    roofline fraction), the phase within ``DRYRUN_LIMIT_S``; one
    ``dryrun:`` line a case, with the card's name and power limit;
+8a1b. the shapes phase (``run_shapes_phase``, after the dryrun phase and
+   before ``init_world``): the repo's shapes at their own lengths, each
+   sized by the dry-run in a worker process started before the LM phase
+   (``start_sizing``, ``launch.dryrun.fit_cell``: the largest batch whose
+   predicted peak, with what
+   is resident, is within ``SHAPES_MEM_SHARE`` of the card; a cell that
+   does not fit at batch 1 is printed and skipped), weights drawn on the
+   card in bf16 at rest, in one launch-count window: gemma2-2b
+   ``prefill_32k`` (``LM.prefill`` of B x 32768 into a full cache, K9 in
+   all 26 layers; the kernel route against the plain route at B = 1 to
+   ``LM_BF16_MAX_ABS``; K9 on that prefill's inputs of a local and a
+   global layer against its plain version, timed beside its bound and
+   SDPA) and ``decode_32k`` (``SHAPES_DECODE_STEPS`` steps against
+   32768-slot caches drawn from the seed), falcon-mamba-7b
+   ``prefill_32k`` (K10 in all 64 layers; its kernel route against the
+   plain route on ``LM_F32_LAYERS`` layers at B = 1; K10 on layer 0's
+   last ``SHAPES_K10_SLICE`` channels bit-equal to its plain version)
+   with one decode step after it (the prefill's state continues) and
+   ``decode_32k`` (``SHAPES_DECODE_STEPS`` steps at its sized batch, the
+   SSM state drawn from the seed), and ``long_500k`` (a prefill at the
+   largest power-of-two length that fits, then decode steps, then K10
+   alone at (1, 524288, 8192, 16) on inputs drawn on the card, its last
+   channels bit-equal to the plain version).  Every cell's predicted peak at least
+   ``DRYRUN_PEAK_MIN`` of the card's, a decode cell's caches equal to
+   the prediction; one ``shapes:`` line a cell (with ``--profile``, a
+   profile of the gemma2-2b prefill); the window is the K9 / K10
+   records' ``shapes_path_launches`` and their new readings their
+   ``shapes`` key;
 8a. the sharded lm phase (``run_sharded_lm``, after ``init_world``; NCCL
    refuses two ranks on one card, so the collectives of a real mesh are
    emulated in one process, and tests/test_torch_sharded_lm.py runs them
@@ -286,10 +336,13 @@
    card (``train_lm.py`` for 20 steps), in a subprocess: it must exit 0
    and print its verdict as ``True``; one ``examples:`` line;
 9. prints one ``{"kernels": [...]}`` line (K9's and K10's records with
-   ``train_path_launches`` and ``sharded_lm_path_launches``) and, last,
+   ``train_path_launches``, ``shapes_path_launches`` and
+   ``sharded_lm_path_launches``) and, last,
    the device line
    ``{"ok": true, "device": {...}}``.
 
+It runs with ``PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True`` unless
+the caller sets that variable (see ``main``).
 Any failed check exits non-zero before the last line.  The script imports
 nothing of the JAX package; without a CUDA device it exits 1.
 """
@@ -300,6 +353,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -438,7 +492,12 @@ LM_F32_LAYERS = 2
 # the scoring prefill); train-gemma-f32 its full width cut to 2 layers (one
 # local, one global) in f32, one step's gradients; train-falcon
 # falcon-mamba-7b at full width, depth cut 64 -> 16 (AdamW's 16 bytes a
-# parameter for 64 layers, ~115 GB, exceed the card's 80 GB).
+# parameter for 64 layers, ~115 GB, exceed the card's 80 GB); train-moe
+# qwen2-moe-a2.7b's train_4k (S = 4096, B cut from 256) at full width, in
+# bf16 with remat and AdamW (dryrun.opt_config_for's pick below 1e11
+# parameters), its depth and batch sized by the dry-run (``sized``: the
+# largest depth that fits at batch 1, then the largest batch there; its
+# 24 layers' AdamW state alone is ~230 GB).
 TRAIN_CASES = (
     dict(label="train-gemma", arch="gemma2-2b", n_layers=None,
          dtype="bfloat16", batch=1, seq=8192, steps=3),
@@ -446,6 +505,8 @@ TRAIN_CASES = (
          dtype="float32", batch=1, seq=8192, steps=0),
     dict(label="train-falcon", arch="falcon-mamba-7b", n_layers=16,
          dtype="bfloat16", batch=1, seq=2048, steps=3),
+    dict(label="train-moe", arch="qwen2-moe-a2.7b", n_layers=None,
+         dtype="bfloat16", batch=None, seq=4096, steps=3, sized="train_4k"),
 )
 TRAIN_OPT = dict(lr=3e-4, warmup=20)          # examples/train_lm.py's
 # the LM kernels' launch counts (one a form): the records that carry
@@ -3085,11 +3146,12 @@ def run_lm_families(torch, dev, profile: bool):
 def train_flop_per_token(cfg, seq: int) -> float:
     """Model FLOPs a token of one forward and backward, without remat's
     recompute: 3 x (2 per weight the token's products read --
-    ``cfg.n_params()``, less the input embedding of an untied model -- and
-    4 D Hq per unmasked (query, key) pair of each attention layer, the
-    mean over a sequence of ``seq`` under its causal and window masks)."""
-    mats = cfg.n_params() - (0 if cfg.tie_embeddings
-                             else cfg.vocab * cfg.d_model)
+    ``cfg.n_active_params()`` (a MoE layer's routed top-k experts, not all
+    of them), less the input embedding of an untied model -- and 4 D Hq
+    per unmasked (query, key) pair of each attention layer, the mean over
+    a sequence of ``seq`` under its causal and window masks)."""
+    mats = cfg.n_active_params() - (0 if cfg.tie_embeddings
+                                    else cfg.vocab * cfg.d_model)
     pairs = sum(attn_pairs(seq, seq, cfg.causal, cfg.layer_spec(i).window)
                 for i in range(cfg.n_layers)
                 if cfg.layer_spec(i).mixer == "attn")
@@ -3140,6 +3202,30 @@ def train_route_check(torch, label, cfg, dtype, params, batch, kname,
     check(math.isfinite(out["loss_kernel"])
           and math.isfinite(out["loss_plain"]),
           f"{label}: a non-finite step-1 loss")
+    if n_moe_layers(cfg):
+        # the routing's gathers have accumulating (index_put_) backwards,
+        # whose sums need not repeat bit for bit from run to run: how far
+        # the kernel route drifts from itself, held to the route check's
+        # tolerance
+        del gp
+        (lk2, _), gk2 = value_and_grad(kern, params, batch)
+        gk2 = tree_leaves(gk2)
+        nk2 = torch.sqrt(sum(torch.sum(g * g) for g in gk2)).item()
+        out.update(
+            drift_loss_rel=abs(lk2.item() - lk.item()) / abs(lk.item()),
+            drift_grad_norm_rel=abs(nk2 - nk) / nk,
+            drift_leaf_rel_l2_max=max(
+                (torch.linalg.vector_norm(a - b)
+                 / torch.linalg.vector_norm(b).clamp(min=1e-30)).item()
+                for a, b in zip(gk2, gk)),
+            drift_bit_equal=all(torch.equal(a, b) for a, b in zip(gk2, gk)))
+        del gk2
+        check(out["drift_loss_rel"] <= TRAIN_BF16_TOL["loss_rtol"]
+              and out["drift_grad_norm_rel"]
+              <= TRAIN_BF16_TOL["grad_norm_rtol"],
+              f"{label}: two runs of the kernel route drift beyond "
+              f"{TRAIN_BF16_TOL}: {out['drift_loss_rel']}, "
+              f"{out['drift_grad_norm_rel']}")
     if dtype == torch.float32:
         check(out["leaf_rel_l2_max"] <= TRAIN_F32_LEAF_REL_L2,
               f"{label}: a leaf's gradient rel. L2 error "
@@ -3174,15 +3260,23 @@ def train_step_split(torch, model, state, batch, opt, label: str) -> None:
         {"value_and_grad_s": t1 - t0, "opt_update_s": t2 - t1}))
 
 
-def run_train_path(torch, dev, profile: bool, readings: dict | None = None):
-    """The train path: each case of ``TRAIN_CASES`` from seeded weights on
-    the card -- the step-1 route check (``train_route_check``), then its
-    AdamW steps, each synchronised, in the train launch-count window,
-    where K9 (train-gemma) or K10 (train-falcon) must launch exactly twice
-    a layer a step and nothing else may launch.  Prints one ``train
-    path:`` line a case; returns the window's counts and each stepped
-    case's warm step seconds, and fills ``readings`` with each stepped
-    case's state bytes, peak and what was resident before its state."""
+def run_train_path(torch, dev, profile: bool, readings: dict | None = None,
+                   labels: tuple | None = None,
+                   sizing: dict | None = None):
+    """The train path: each case of ``TRAIN_CASES`` (of ``labels``, when
+    given) from seeded weights on the card -- the step-1 route check
+    (``train_route_check``, on parameters drawn before the optimizer
+    state, then freed: the state is drawn again from the same seed), then
+    its AdamW steps, each synchronised, in the train launch-count window,
+    where K9 (train-gemma, train-moe) or K10 (train-falcon) must launch
+    exactly twice a layer a step and nothing else may launch.  A ``sized``
+    case takes its depth and batch from the dry-run (``sizing``, from
+    ``start_sizing``), and its predicted peak and state bytes are held
+    against the card's.  Prints one
+    ``train path:`` line a case (and a ``shapes:`` line a sized case);
+    returns the window's counts and each stepped case's warm step seconds,
+    and fills ``readings`` with each stepped case's state bytes, peak and
+    what was resident before its state."""
     from repro_torch.tree import tensors
     from repro_torch.configs import ARCHS
     from repro_torch.data import TokenPipeline
@@ -3194,31 +3288,36 @@ def run_train_path(torch, dev, profile: bool, readings: dict | None = None):
     window = dict.fromkeys(_build.counts(), 0)
     warm_by_case = {}
     for case in TRAIN_CASES:
+        if labels is not None and case["label"] not in labels:
+            continue
         cfg = ARCHS[case["arch"]]
         if case["n_layers"]:
             cfg = dataclasses.replace(cfg, n_layers=case["n_layers"])
+        batch_size = case["batch"]
+        sized = None
+        if case.get("sized"):
+            (sized,) = sizing_result(torch, sizing, case["label"]).values()
+            if not sized["fits"]:
+                continue
+            cfg, batch_size = sized["cfg"], sized["shape"].global_batch
         dtype = getattr(torch, case["dtype"])
         kname = ("mamba_scan" if cfg.family == "ssm" else
                  "flash_attention" if dtype == torch.bfloat16 else
                  "flash_attention_f32")
         nl = cfg.n_layers
-        gen = torch.Generator(device=dev).manual_seed(LM_SEED)
         opt = OptConfig(**TRAIN_OPT)
         model = LM(cfg, compute_dtype=dtype, attn_impl="kernel",
                    ssm_impl="kernel")
         resident = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
-        if case["steps"]:
-            state = init_state(model, gen, opt)
-            params = state.params
-        else:
-            params = model.init(gen, device=dev)
+        params = model.init(torch.Generator(device=dev).manual_seed(LM_SEED),
+                            device=dev)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
-        pipe = TokenPipeline(cfg.vocab, case["batch"], case["seq"], seed=0)
+        pipe = TokenPipeline(cfg.vocab, batch_size, case["seq"], seed=0)
         batches = [pipe.next_batch() for _ in range(max(case["steps"], 1))]
         line = {"model": cfg.name, "n_layers": nl, "compute": case["dtype"],
-                "B": case["batch"], "S": case["seq"],
+                "B": batch_size, "S": case["seq"],
                 "params": sum(t.numel() for t in tree_leaves(params)),
                 "init_s": init_s}
         route, rcounts = train_route_check(
@@ -3234,6 +3333,11 @@ def run_train_path(torch, dev, profile: bool, readings: dict | None = None):
             gc.collect()
             torch.cuda.empty_cache()
             continue
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        state = init_state(model, torch.Generator(device=dev).manual_seed(
+            LM_SEED), opt)
         step = make_train_step(model, opt)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -3258,12 +3362,13 @@ def run_train_path(torch, dev, profile: bool, readings: dict | None = None):
             window[k] += v
         warm = statistics.mean(walls[1:])
         warm_by_case[case["label"]] = warm
+        state_bytes = sum(t.nbytes for t in tensors((state.params,
+                                                     state.opt)))
         if readings is not None:
             readings[case["label"]] = {
                 "peak": peak, "resident": resident, "warm_step_s": warm,
-                "state_bytes": sum(t.nbytes for t in tensors(
-                    (state.params, state.opt)))}
-        tokens = case["batch"] * case["seq"]
+                "state_bytes": state_bytes}
+        tokens = batch_size * case["seq"]
         line.update(
             losses=losses, step_walls_s=walls, warm_step_s=warm,
             tokens_per_s=tokens / warm, max_memory_allocated=peak,
@@ -3276,12 +3381,26 @@ def run_train_path(torch, dev, profile: bool, readings: dict | None = None):
                         bound_s=flop / PEAK_BF16,
                         bound_with_remat_s=flop * 4 / 3 / PEAK_BF16)
         print(f"train path {case['label']}: " + json.dumps(line))
+        if sized is not None:
+            check(state_bytes == sized["predicted_state_bytes"],
+                  f"{case['label']}: state {state_bytes} B, predicted "
+                  f"{sized['predicted_state_bytes']}")
+            shapes_line(f"{cfg.name} {case['sized']} ({case['label']})",
+                        sized, card_line(), warm_step_s=warm,
+                        tokens_per_s=tokens / warm,
+                        mfu_bf16=line.get("mfu_bf16"),
+                        max_memory_allocated=peak, resident=resident,
+                        state_bytes=state_bytes,
+                        predicted_state_bytes=sized["predicted_state_bytes"],
+                        **shapes_gate(case["label"], sized["predicted_peak"],
+                                      peak - resident),
+                        launches=line["launches"], losses=losses)
         if profile:
             profile_call(torch, lambda: step(state, batches[-1])[1][
                 "loss"].item(), f"{case['label']} train step", top=30)
             train_step_split(torch, model, state, batches[-1], opt,
                              case["label"])
-        del state, params, step, model
+        del state, step, model
         gc.collect()
         torch.cuda.empty_cache()
     return window, warm_by_case
@@ -3387,6 +3506,644 @@ def run_dryrun_phase(torch, readings: dict) -> None:
         print("dryrun: " + json.dumps(line))
     check(secs <= DRYRUN_LIMIT_S, f"dryrun phase took {secs:.1f} s, over "
           f"its {DRYRUN_LIMIT_S} s")
+
+
+# ---------------------------------------------------------------------------
+# 8a1b. the shapes phase
+# ---------------------------------------------------------------------------
+
+# The repo's shapes (configs/base.py SHAPES) at their own sequence lengths
+# on one card, each sized by the dry-run before it runs: the largest batch
+# (at most the shape's own) whose predicted peak, plus what is resident on
+# the card, stays within SHAPES_MEM_SHARE of the card's memory
+# (torch.cuda.mem_get_info's total).  The dry-run read the card's peaks
+# 0.973-0.996 of what they were (PERF.md); the rest of the share leaves
+# room for that, the CUDA context and the allocator's rounding.  Widths are
+# never cut; the sequence only where long_500k's prefill does not fit at
+# batch 1 (the largest power of two that does); the depth only for
+# train-moe (TRAIN_CASES).  The served weights are drawn on the card from
+# LM_SEED in bf16 at rest (LM.init(dtype=...)): every cell is bounded by
+# its batch, and an f32 copy (gemma2-2b 10.5 GB, falcon-mamba-7b 29.2 GB)
+# would take its room.
+SHAPES_MEM_SHARE = 0.9
+SHAPES_LIMIT_S = 150.0
+# DecodeSession steps of a decode cell (the dry-run's decode cell is one
+# step against caches of the shape's length)
+SHAPES_DECODE_STEPS = 4
+# channels of K10's plain checks: the last ones, whose offsets t C + c
+# reach 2^32 - 1 at S = 524288, C = 8192
+SHAPES_K10_SLICE = 64
+# label: (arch, shape, the dry-run's stand-ins where the card runs a kernel)
+SHAPE_CELLS = {
+    "gemma2-2b prefill_32k": ("gemma2-2b", "prefill_32k",
+                              {"attn_bypass": True}),
+    "gemma2-2b decode_32k": ("gemma2-2b", "decode_32k", {}),
+    "falcon-mamba-7b prefill_32k": ("falcon-mamba-7b", "prefill_32k",
+                                    {"ssm_bypass": True}),
+    "falcon-mamba-7b decode_32k": ("falcon-mamba-7b", "decode_32k", {}),
+    "falcon-mamba-7b long_500k": ("falcon-mamba-7b", "long_500k",
+                                  {"ssm_bypass": True}),
+}
+# decode cells the card reaches by a prefill of the shape's length (sized
+# as that prefill; the dry-run's cell, one step after it, is the
+# "<label> decode" cell at the prefill's batch)
+SHAPES_PREFILLED = ("falcon-mamba-7b long_500k",)
+
+
+def shapes_budget(torch) -> dict:
+    """The sizing budget now: ``SHAPES_MEM_SHARE`` of the card's memory
+    less what is allocated on it."""
+    total = torch.cuda.mem_get_info()[1]
+    resident = torch.cuda.memory_allocated()
+    return {"card_total": total, "resident": resident,
+            "share": SHAPES_MEM_SHARE,
+            "budget": SHAPES_MEM_SHARE * total - resident}
+
+
+def sizing_line(label: str, sz: dict, budget: dict) -> None:
+    line = {"cell": label, "arch": sz["cfg"].name, "fits": sz["fits"],
+            "B": sz["shape"].global_batch if sz["fits"] else 0,
+            "S": sz["shape"].seq_len, "n_layers": sz["cfg"].n_layers,
+            "cut": sz["cut"], "predicted_peak": sz["predicted_peak"],
+            **budget, "traces": sz["traces"], "sizing_s": sz["sizing_s"],
+            # the peaks are allocated bytes; a batch sized here fits only
+            # under the allocator this run has (see ``main``)
+            "alloc_conf": os.environ.get("PYTORCH_CUDA_ALLOC_CONF")}
+    for key in ("predicted_cache_bytes", "predicted_state_bytes"):
+        if key in sz:
+            line[key] = sz[key]
+    print("shapes sizing: " + json.dumps(line))
+    if not sz["fits"]:
+        print(f"shapes: {label} does not fit one card at batch 1: predicted "
+              f"peak {sz['predicted_peak']} B > budget {budget['budget']} B; "
+              "skipped")
+
+
+def size_task(label: str, budget: float) -> dict:
+    """One sizing task, in a worker process of ``start_sizing`` (host only:
+    its own one-rank fake world and (1, 1) meta mesh).  ``label`` is a
+    sized train case (``dryrun.fit_cell(vary="depth")`` on the plain
+    routes, as K9's autograd Function recomputes its backward through
+    them, with the predicted state bytes at the pick) or a cell of
+    ``SHAPE_CELLS`` (``dryrun.fit_cell`` with the served tree in bf16; a
+    decode cell with its predicted cache bytes).  A cell of
+    ``SHAPES_PREFILLED`` is sized as the prefill the card runs to reach it
+    (``vary="seq"``), and its own cell (one step against caches of its
+    length) predicted at the prefill's batch.  Returns
+    ``{label: fit_cell's dict}`` for each cell it sized."""
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import SHAPES, ShapeConfig
+    from repro_torch.distributed.sharding import AxisRules
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+
+    torch.set_num_threads(1)
+    out = {}
+    with dryrun.fake_world(1):
+        mesh = make_host_mesh((1, 1), ("data", "model"), device_type="meta")
+        rules = AxisRules.for_mesh(mesh)
+        case = {c["label"]: c for c in TRAIN_CASES}.get(label)
+        if case is not None:
+            cfg, shape = ARCHS[case["arch"]], SHAPES[case["sized"]]
+            check(dryrun.opt_config_for(cfg).name == "adamw",
+                  f"{label}: the dry-run picks "
+                  f"{dryrun.opt_config_for(cfg).name}, the train path runs "
+                  "AdamW")
+            check(shape.seq_len == case["seq"], f"{label}: S {case['seq']} "
+                  f"is not {case['sized']}'s {shape.seq_len}")
+            sz = dryrun.fit_cell(cfg, shape, budget, mesh, rules,
+                                 vary="depth")
+            if sz["fits"]:
+                state = dryrun.build_cell(sz["cfg"], sz["shape"], mesh,
+                                          rules).args[0]
+                sz["predicted_state_bytes"] = dryrun.local_bytes(
+                    (state.params, state.opt))
+            return {f"{cfg.name} {case['sized']} ({label})": sz}
+        arch, sname, stand_in = SHAPE_CELLS[label]
+        cfg, shape = ARCHS[arch], SHAPES[sname]
+        kw = {"params_dtype": torch.bfloat16}
+
+        def cache_bytes(shape) -> int:
+            return dryrun.local_bytes(dryrun.build_cell(
+                cfg, shape, mesh, rules, **kw).args[1])
+
+        if label not in SHAPES_PREFILLED:
+            sz = dryrun.fit_cell(cfg, shape, budget, mesh, rules,
+                                 **stand_in, **kw)
+            if sz["fits"] and shape.kind == "decode":
+                sz["predicted_cache_bytes"] = cache_bytes(sz["shape"])
+            return {label: sz}
+        sz = dryrun.fit_cell(cfg, ShapeConfig(sname, shape.seq_len,
+                                              shape.global_batch, "prefill"),
+                             budget, mesh, rules, vary="seq", **stand_in,
+                             **kw)
+        out[label] = sz
+        dshape = dataclasses.replace(shape,
+                                     global_batch=sz["shape"].global_batch)
+        t0 = time.perf_counter()
+        mem = dryrun.peak_memory(cfg, dshape, mesh, rules, **kw)
+        out[f"{label} decode"] = {
+            "fits": sz["fits"], "cfg": cfg, "shape": dshape,
+            "predicted_peak": mem["peak_bytes"],
+            "cut": {"B": f"{shape.global_batch} -> {dshape.global_batch} "
+                         "(the prefill's batch, which the step continues)"},
+            "predicted_cache_bytes": cache_bytes(dshape),
+            "traces": [{"n_layers": cfg.n_layers, "B": dshape.global_batch,
+                        "S": dshape.seq_len, "peak": mem["peak_bytes"]}],
+            "sizing_s": time.perf_counter() - t0}
+    return out
+
+
+# the sized train cases, then the shapes phase's cells: one worker each
+SIZING_TASKS = tuple(c["label"] for c in TRAIN_CASES if c.get("sized")) \
+    + tuple(SHAPE_CELLS)
+SIZING_WAIT_S = 600.0
+
+
+def start_sizing(torch) -> dict:
+    """Start ``size_task`` for every one of ``SIZING_TASKS`` in a pool of
+    spawned processes (host work on the meta device, run beside the card's
+    phases), against the budget now: call it where what is resident is
+    what the sized cells will find (the smoke calls it after the search
+    paths' kernel phases, when only their stores remain)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    budget = shapes_budget(torch)
+    pool = ProcessPoolExecutor(
+        max_workers=len(SIZING_TASKS),
+        mp_context=multiprocessing.get_context("spawn"))
+    return {"pool": pool, "budget": budget, "t0": time.perf_counter(),
+            "futures": {label: pool.submit(size_task, label,
+                                           budget["budget"])
+                        for label in SIZING_TASKS}}
+
+
+def sizing_result(torch, sizing: dict, label: str) -> dict:
+    """The cells ``label``'s sizing task sized, each printed as a
+    ``shapes sizing:`` line; each one that fits must still fit beside
+    what is resident now."""
+    got = sizing["futures"][label].result(timeout=SIZING_WAIT_S)
+    budget = dict(sizing["budget"],
+                  resident_now=torch.cuda.memory_allocated(),
+                  waited_s=time.perf_counter() - sizing["t0"])
+    for name, sz in got.items():
+        sizing_line(name, sz, budget)
+        if sz["fits"]:
+            check(sz["predicted_peak"] + budget["resident_now"]
+                  <= budget["share"] * budget["card_total"],
+                  f"shapes {name}: predicted peak {sz['predicted_peak']} B "
+                  f"and {budget['resident_now']} B resident now exceed "
+                  f"{budget['share']} of the card")
+    return got
+
+
+def shapes_gate(label: str, predicted: int, card: int) -> dict:
+    """The dry-run's predicted peak against the card's (its
+    ``max_memory_allocated`` less what was resident before the cell's
+    weights): at least ``DRYRUN_PEAK_MIN`` of it."""
+    check(predicted >= DRYRUN_PEAK_MIN * card, f"shapes {label}: predicted "
+          f"peak {predicted} B under-reports the card's {card} B")
+    return {"predicted_peak": predicted, "card_peak": card,
+            "peak_ratio": predicted / card}
+
+
+def shapes_line(label: str, sz: dict, card: str, **fields) -> None:
+    sh = sz["shape"]
+    print("shapes: " + json.dumps({
+        "card": card, "cell": label, "arch": sz["cfg"].name,
+        "shape": sh.name, "B": sh.global_batch, "S": sh.seq_len,
+        "n_layers": sz["cfg"].n_layers, "cut": sz["cut"], **fields}))
+
+
+class ScanSlice:
+    """Wraps ``kernels.ops.mamba_scan_cuda``: puts CUDA events around each
+    call, and keeps copies of the last ``n`` channels of its first call's
+    inputs and outputs.  The channels of a selective scan are independent,
+    so the plain version on that slice is the kernel's output there."""
+
+    def __init__(self, ops_module, n: int):
+        self.ops, self.n = ops_module, n
+        self.orig = ops_module.mamba_scan_cuda
+        self.args = self.out = None
+        self.events = []
+        ops_module.mamba_scan_cuda = self
+
+    def __call__(self, delta, u, A, Bm, Cm, h0):
+        import torch
+
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        y, hT = self.orig(delta, u, A, Bm, Cm, h0)
+        ev[1].record()
+        self.events.append(ev)
+        if self.args is None:
+            sl = slice(delta.shape[2] - self.n, None)
+            self.args = (delta[..., sl].clone(), u[..., sl].clone(),
+                         A[sl].clone(), Bm.clone(), Cm.clone(),
+                         h0[:, sl].clone())
+            self.out = (y[..., sl].clone(), hT[:, sl].clone())
+        return y, hT
+
+    def ms(self) -> list:
+        import torch
+
+        torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in self.events]
+
+    def restore(self):
+        self.ops.mamba_scan_cuda = self.orig
+
+
+def k9_bound(q, k, causal: bool, window) -> tuple[float, str]:
+    """K9's least milliseconds: 4 D operations per unmasked (query head,
+    key) pair at the bf16 tensor-core peak, against q, k, v and o once."""
+    B9, Sq9, Hq9, D9 = q.shape
+    pairs = attn_pairs(Sq9, k.shape[1], causal, window)
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    return bound(nbytes, 4.0 * B9 * Hq9 * D9 * pairs, PEAK_BF16)
+
+
+def k9_at_length(torch, calls: list, path_ms: list, B: int) -> dict:
+    """K9 on the recorded inputs of one sequence of a local and a global
+    layer (``calls``: a ``Recorder``'s) against its plain version (bf16
+    tolerance and relative RMS), timed beside the plain version, its bound
+    and, for the global layer, SDPA; ``path_ms``: the path's per-launch
+    times at batch ``B``, in layer order (local first)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    out = {}
+    for i, (q, k, v, causal, window, cap) in enumerate(calls):
+        kind = "local" if window else "global"
+        S = q.shape[1]
+        want, plain_ms = timed(lambda: ref.flash_attention_ref(
+            q, k, v, causal, window, cap))
+        r = k9_compare(f"flash_attention (shapes, {kind} layer, S={S})",
+                       flash_attention_cuda(q, k, v, causal, window, cap),
+                       want)
+        del want
+        # SDPA has no window argument; its masked form would take an S x S
+        # mask (1 GB at S = 32768), so only the global layer has a
+        # yardstick, without the cap (SDPA has none)
+        library_ms = None if window else time_ms(
+            lambda: F.scaled_dot_product_attention(
+                *(x.transpose(1, 2) for x in (q, k, v)), is_causal=True,
+                enable_gqa=True), 3, warmup=1)
+        bms, by = k9_bound(q, k, causal, window)
+        layer = path_ms[i::2]
+        out[f"{kind}_s{S}"] = dict(
+            shape=f"B=1 S={S} Hq={q.shape[2]} Hkv={k.shape[2]} "
+                  f"D={q.shape[3]} {q.dtype} causal window={window} "
+                  f"cap={cap}",
+            max_abs_err=r["max_abs_err"], rel_rms_err=r["rel_rms_err"],
+            ms=time_ms(lambda: flash_attention_cuda(q, k, v, causal, window,
+                                                    cap), 5),
+            plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+            library_ms=library_ms,
+            library_call=None if window else (
+                "F.scaled_dot_product_attention(is_causal=True, "
+                "enable_gqa=True) at the same inputs without the cap"),
+            path_B=B, path_launches=len(layer),
+            path_ms_per_launch=statistics.mean(layer),
+            path_ms_per_sequence=statistics.mean(layer) / B)
+    return out
+
+
+def shapes_gemma(torch, dev, sized: dict, window: dict, out: dict,
+                 card: str, profile: bool) -> None:
+    """gemma2-2b's ``prefill_32k`` (``LM.prefill`` of B x 32768 into a
+    full cache: K9 in all 26 layers, 13 global, 13 local) and
+    ``decode_32k`` (``DecodeSession`` steps against 32768-slot caches
+    filled from the seed) at their sized batches."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import ops
+    from repro_torch.models import LM
+
+    pre = sized["gemma2-2b prefill_32k"]
+    dec = sized["gemma2-2b decode_32k"]
+    if not (pre["fits"] or dec["fits"]):
+        return
+    cfg = ARCHS["gemma2-2b"]
+    resident = torch.cuda.memory_allocated()
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED)
+    params = LM(cfg).init(gen, device=dev, dtype=torch.bfloat16)
+    models = lm_models(torch, cfg, torch.bfloat16)
+    if pre["fits"]:
+        label = "gemma2-2b prefill_32k"
+        B, S = pre["shape"].global_batch, pre["shape"].seq_len
+        tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                               device=dev)
+        timer = LaunchTimer(ops, "flash_attention_cuda")
+        try:
+            logits, caches, secs, counts, peak = lm_prefill(
+                torch, models["kernel"], params, tokens)
+        finally:
+            timer.restore()
+        layer_ms = [s.elapsed_time(e) for s, e in timer.events]
+        check_launches(label, counts, {"flash_attention": cfg.n_layers})
+        for k, v in counts.items():
+            window[k] += v
+        del caches
+        gate = shapes_gate(label, pre["predicted_peak"], peak - resident)
+        # the route check and K9's inputs on the first sequence
+        rec = Recorder(ops, "flash_attention_cuda", keep=2)
+        try:
+            one_k = models["kernel"].prefill(params,
+                                             {"tokens": tokens[:1]})[0]
+        finally:
+            rec.restore()
+        one_p = models["plain"].prefill(params, {"tokens": tokens[:1]})[0]
+        route_err = max_abs(one_k, one_p)
+        bf16_check(f"{label} kernel vs plain route (B = 1)", cfg, route_err)
+        k9 = k9_at_length(torch, rec.calls, layer_ms, B)
+        del rec, one_p
+        out.setdefault("flash_attention", {}).update(k9)
+        shapes_line(label, pre, card, wall_s=secs,
+                    prompt_tokens_per_s=B * S / secs,
+                    max_memory_allocated=peak, resident=resident, **gate,
+                    launches={k: v for k, v in counts.items() if v},
+                    route_b1_max_abs=route_err,
+                    batch_row0_vs_b1_max_abs=max_abs(logits[:1], one_k),
+                    tol={"bf16_max_abs": LM_BF16_MAX_ABS[cfg.name]},
+                    k9={k: {"ms": r["ms"], "bound_ms": r["bound_ms"],
+                            "path_ms_per_sequence":
+                                r["path_ms_per_sequence"]}
+                        for k, r in k9.items()})
+        del logits, one_k
+        if profile:
+            profile_call(torch, lambda: models["kernel"].prefill(
+                params, {"tokens": tokens}), f"shapes {label}", top=20)
+        del tokens
+    if dec["fits"]:
+        shapes_decode(torch, dev, "gemma2-2b decode_32k", dec,
+                      models["kernel"], params, gen, resident, card)
+    del params, models
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def shapes_decode(torch, dev, label: str, dsz: dict, model, params, gen,
+                  resident: int, card: str) -> None:
+    """A decode cell at its sized batch: ``SHAPES_DECODE_STEPS``
+    ``DecodeSession.step``s against caches of the shape's length drawn
+    from the seed (normal; a prefill into them would run the plain
+    attention, whose chunked scores would not fit beside them at this
+    batch), the last steps' slots at the end of the cache.  Checks: finite
+    logits, no kernel launched, the caches' bytes equal to the prediction
+    and the predicted step peak against the card's (the peak is reset
+    before each step, so it is the last one's)."""
+    from repro_torch.kernels import _build
+    from repro_torch.serve import DecodeSession
+
+    B, S = dsz["shape"].global_batch, dsz["shape"].seq_len
+    sess = DecodeSession(model, params, max_len=S)
+    sess.caches = model.init_caches(B, S, dev)
+    for c in sess.caches:
+        for t in c.values():
+            t.normal_(generator=gen)
+    sess.index = S - SHAPES_DECODE_STEPS
+    cache_bytes = sum(t.nbytes for c in sess.caches for t in c.values())
+    check(cache_bytes == dsz["predicted_cache_bytes"],
+          f"shapes {label}: caches {cache_bytes} B, predicted "
+          f"{dsz['predicted_cache_bytes']}")
+    tok = torch.randint(0, model.cfg.vocab, (B, 1), generator=gen,
+                        device=dev)
+    walls = []
+    _build.reset_counts()
+    for _ in range(SHAPES_DECODE_STEPS):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        logits = sess.step(tok)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        check(torch.isfinite(logits).all().item(),
+              f"shapes {label}: non-finite step logits")
+        tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+    peak = torch.cuda.max_memory_allocated()
+    check_launches(label, _build.counts(), {})
+    gate = shapes_gate(label, dsz["predicted_peak"], peak - resident)
+    del sess, logits, tok
+    shapes_line(label, dsz, card, step_walls_s=walls,
+                decode_tokens_per_s=B / statistics.mean(walls[1:]),
+                cache_bytes=cache_bytes,
+                predicted_cache_bytes=dsz["predicted_cache_bytes"],
+                step_max_memory_allocated=peak, resident=resident, **gate,
+                caches="drawn from the seed (normal), the last "
+                f"{SHAPES_DECODE_STEPS} slots written by the steps")
+
+
+def falcon_steps(torch, model, params, caches, logits, index: int,
+                 n: int) -> tuple[list, int]:
+    """``n`` decode steps after a prefill (argmax tokens), each timed and
+    its logits checked; the peak is reset before each, so the returned
+    peak is the last step's.  Returns (walls, peak)."""
+    from repro_torch.kernels import _build
+
+    tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+    walls = []
+    _build.reset_counts()
+    for i in range(n):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        step, caches = model.decode_step(params, caches, tok, index + i)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        check(torch.isfinite(step).all().item(),
+              "shapes: non-finite decode-step logits")
+        tok = torch.argmax(step, -1)[:, None].to(torch.int32)
+    check_launches("shapes decode steps", _build.counts(), {})
+    return walls, torch.cuda.max_memory_allocated()
+
+
+def shapes_falcon(torch, dev, sized: dict, window: dict, out: dict,
+                  card: str) -> None:
+    """falcon-mamba-7b's ``prefill_32k`` (K10 in all 64 layers, then one
+    decode step to show the prefill's state continues), ``decode_32k``
+    (``shapes_decode``: the step holds only the SSM state, drawn from the
+    seed at its sized batch) and ``long_500k``: a prefill at the sized
+    length and decode steps, then K10 alone at the shape's own
+    (1, 524288, 8192, 16)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels.mamba_scan import mamba_scan_cuda
+    from repro_torch.models import LM
+
+    cfg = ARCHS["falcon-mamba-7b"]
+    resident = torch.cuda.memory_allocated()
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED)
+    params = LM(cfg).init(gen, device=dev, dtype=torch.bfloat16)
+    models = lm_models(torch, cfg, torch.bfloat16)
+    for label in ("falcon-mamba-7b prefill_32k", "falcon-mamba-7b long_500k"):
+        sz = sized[label]
+        if not sz["fits"]:
+            continue
+        B, S = sz["shape"].global_batch, sz["shape"].seq_len
+        tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                               device=dev)
+        k10 = ScanSlice(ops, SHAPES_K10_SLICE)
+        try:
+            logits, caches, secs, counts, peak = lm_prefill(
+                torch, models["kernel"], params, tokens)
+        finally:
+            k10.restore()
+        check_launches(label, counts, {"mamba_scan": cfg.n_layers})
+        for k, v in counts.items():
+            window[k] += v
+        gate = shapes_gate(label, sz["predicted_peak"], peak - resident)
+        launch_ms = k10.ms()
+        fields = dict(wall_s=secs, prompt_tokens_per_s=B * S / secs,
+                      max_memory_allocated=peak, resident=resident, **gate,
+                      launches={k: v for k, v in counts.items() if v},
+                      k10_path_ms_per_launch=statistics.mean(launch_ms))
+        if label in SHAPES_PREFILLED:
+            # the shape's own cell: decode steps after the prefill
+            dlabel = f"{label} decode"
+            dsz = sized[dlabel]
+            cache_bytes = sum(t.nbytes for c in caches for t in c.values())
+            check(cache_bytes == dsz["predicted_cache_bytes"],
+                  f"shapes {dlabel}: caches {cache_bytes} B, predicted "
+                  f"{dsz['predicted_cache_bytes']}")
+            walls, step_peak = falcon_steps(torch, models["kernel"], params,
+                                            caches, logits, S,
+                                            SHAPES_DECODE_STEPS)
+            dgate = shapes_gate(dlabel, dsz["predicted_peak"],
+                                step_peak - resident)
+            dline = dict(step_walls_s=walls,
+                         step_max_memory_allocated=step_peak,
+                         resident=resident, cache_bytes=cache_bytes, **dgate,
+                         predicted_cache_bytes=dsz["predicted_cache_bytes"])
+        else:
+            # continuity only: one step from the prefill's state
+            walls, _ = falcon_steps(torch, models["kernel"], params, caches,
+                                    logits, S, 1)
+            fields["step_after_prefill_wall_s"] = walls[0]
+            # the route check on a depth cut at batch 1, and K10 on
+            # layer 0's channel slice, bit-equal to the plain version
+            cut = dataclasses.replace(cfg, n_layers=LM_F32_LAYERS)
+            pcut = dict(params, layers=params["layers"][:LM_F32_LAYERS])
+            mcut = lm_models(torch, cut, torch.bfloat16)
+            one = {"tokens": tokens[:1]}
+            _build.reset_counts()
+            got_cut = mcut["kernel"].prefill(pcut, one)[0]
+            check_launches(f"{label} depth cut", _build.counts(),
+                           {"mamba_scan": LM_F32_LAYERS})
+            route_err = max_abs(got_cut, mcut["plain"].prefill(pcut, one)[0])
+            del got_cut
+            bf16_check(f"{label} kernel vs plain route ({LM_F32_LAYERS} "
+                       "layers, B = 1)", cfg, route_err)
+            want, plain_ms = timed(lambda: ref.mamba_scan_ref(*k10.args))
+            err = compare(f"mamba_scan (shapes, {label} layer 0, last "
+                          f"{SHAPES_K10_SLICE} channels)", k10.out, want,
+                          exact=True)
+            del want, mcut, pcut
+            C, N = cfg.d_inner_, cfg.ssm_state
+            bms, by = scan_bound(B, S, C, N)
+            out.setdefault("mamba_scan", {})[f"s{S}"] = dict(
+                shape=f"B={B} S={S} C={C} N={N} f32 (each layer of the "
+                      f"{label} cell)",
+                ms=statistics.mean(launch_ms), launches_a_cell=len(launch_ms),
+                bound_ms=bms, bound_by=by,
+                max_abs_err=err, plain_ms=plain_ms,
+                plain_shape=f"B={B} S={S} C={SHAPES_K10_SLICE} (layer 0's "
+                            f"last channels) N={N}",
+                library_ms=None)
+            fields.update(route_depth_cut_max_abs=route_err,
+                          route_depth_cut_layers=LM_F32_LAYERS,
+                          k10_slice_max_abs_err=err)
+        del caches, logits, k10, tokens
+        shapes_line(label, sz, card, **fields)
+        if label in SHAPES_PREFILLED:
+            shapes_line(dlabel, dsz, card, **dline)
+    dec = sized["falcon-mamba-7b decode_32k"]
+    if dec["fits"]:
+        shapes_decode(torch, dev, "falcon-mamba-7b decode_32k", dec,
+                      models["kernel"], params, gen, resident, card)
+    del params, models
+    gc.collect()
+    torch.cuda.empty_cache()
+    # K10 alone at long_500k's own length, on inputs drawn on the card
+    from repro_torch.configs.base import SHAPES
+
+    Bl, Sl = SHAPES["long_500k"].global_batch, SHAPES["long_500k"].seq_len
+    C, N = cfg.d_inner_, cfg.ssm_state
+    delta = torch.rand(Bl, Sl, C, generator=gen, device=dev).mul_(0.1)
+    u = torch.randn(Bl, Sl, C, generator=gen, device=dev)
+    A = torch.rand(C, N, generator=gen, device=dev).mul_(-3.0)
+    Bm = torch.randn(Bl, Sl, N, generator=gen, device=dev)
+    Cm = torch.randn(Bl, Sl, N, generator=gen, device=dev)
+    h0 = torch.randn(Bl, C, N, generator=gen, device=dev)
+    args = (delta, u, A, Bm, Cm, h0)
+    _build.reset_counts()
+    got, first_ms = timed(lambda: mamba_scan_cuda(*args))
+    counts = _build.counts()
+    check_launches(f"mamba_scan at S={Sl}", counts, {"mamba_scan": 1})
+    for k, v in counts.items():
+        window[k] += v
+    sl = slice(C - SHAPES_K10_SLICE, None)
+    sargs = (delta[..., sl].contiguous(), u[..., sl].contiguous(),
+             A[sl].contiguous(), Bm, Cm, h0[:, sl].contiguous())
+    want, plain_ms = timed(lambda: ref.mamba_scan_ref(*sargs))
+    err = compare(f"mamba_scan S={Sl} (last {SHAPES_K10_SLICE} channels)",
+                  (got[0][..., sl], got[1][:, sl]), want, exact=True)
+    del got, want, sargs
+    ms = time_ms(lambda: mamba_scan_cuda(*args), 2, warmup=0)
+    del args, delta, u, A, Bm, Cm, h0
+    gc.collect()
+    torch.cuda.empty_cache()
+    bms, by = scan_bound(Bl, Sl, C, N)
+    out.setdefault("mamba_scan", {})[f"s{Sl}"] = dict(
+        shape=f"B={Bl} S={Sl} C={C} N={N} f32 (long_500k's length, inputs "
+              "drawn on the card)",
+        ms=ms, first_call_ms=first_ms, bound_ms=bms, bound_by=by,
+        max_abs_err=err, plain_ms=plain_ms,
+        plain_shape=f"B={Bl} S={Sl} C={SHAPES_K10_SLICE} (the last "
+                    f"channels) N={N}",
+        library_ms=None)
+    print("shapes: " + json.dumps({
+        "card": card, "cell": "falcon-mamba-7b long_500k K10",
+        **out["mamba_scan"][f"s{Sl}"]}))
+
+
+def scan_bound(B: int, S: int, C: int, N: int) -> tuple[float, str]:
+    """K10's least milliseconds: its inputs and outputs once (delta, u,
+    B and C rows, y; A, h0, hT) against 7 FP32 operations per (b, t, c,
+    n)."""
+    return bound(4.0 * (B * S * (2 * C + 2 * N) + B * S * C + C * N
+                        + 2 * B * C * N), 7.0 * B * S * C * N + B * S * C)
+
+
+def run_shapes_phase(torch, dev, profile: bool, sizing: dict):
+    """The ``shapes`` phase: each cell of ``SHAPE_CELLS`` that fits, at
+    the batch (and length) its sizing task found (``sizing``, from
+    ``start_sizing``; ``shapes_gemma``, ``shapes_falcon``), in one
+    launch-count window.  Returns the window's counts and the K9 / K10
+    readings at the shapes' lengths (the ``shapes`` key of their
+    records)."""
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    card = card_line()
+    sized = {}
+    for label in SHAPE_CELLS:
+        sized.update(sizing_result(torch, sizing, label))
+    window = dict.fromkeys(_build.counts(), 0)
+    out = {}
+    shapes_gemma(torch, dev, sized, window, out, card, profile)
+    shapes_falcon(torch, dev, sized, window, out, card)
+    secs = time.perf_counter() - t0
+    print("shapes phase: " + json.dumps({
+        "card": card, "phase_s": secs, "limit_s": SHAPES_LIMIT_S,
+        "launches": {k: v for k, v in window.items() if v}}))
+    check(secs <= SHAPES_LIMIT_S, f"shapes phase took {secs:.1f} s, over "
+          f"its {SHAPES_LIMIT_S} s")
+    return window, out
 
 
 # ---------------------------------------------------------------------------
@@ -4422,11 +5179,20 @@ def kernel_phases(torch, dev, recs, windows, sk_index, sk_queries,
             k4_ms=k4t[form], **ptxas.get("dtw_band_step" + sfx, {})))
 
     # K5 in its three forms.  (a) "rows" on the long path's largest round
-    # (the form the path ran) with its own cutoffs and with none, pairs of
-    # all its rounds with their cutoffs, just over the K4/K5 crossover and
-    # at the (a)/(b) edge; (b) "cluster" just past that edge and at
-    # L = 65536, w = L; (c) "scratch" (past what a cluster holds, so never
-    # on a path here) forced at the crossover shape and timed on the round
+    # (the form the path ran) with its own cutoffs, on pairs of all its
+    # rounds with their cutoffs, just over the K4/K5 crossover and at the
+    # (a)/(b) edge; (b) "cluster" forced on the round and over the
+    # crossover, past the edge in its own 2 blocks and in 3, 4 and 8, and
+    # at L = 65536 (3 blocks) timed, in 3, 4 and 8 blocks and beside the
+    # scratch form; (c) "scratch" (past what a cluster holds, so never on a
+    # path here) forced on the round, over the crossover, past the edge and
+    # at L = 65536.  The plain version sweeps all 2 L - 1 anti-diagonals of
+    # a shape whatever its pairs and cutoffs, so a shape has one plain run
+    # or two: the round's with its own cutoffs; at the edge one with
+    # cutoffs from the default form's values, twice one pair's (spared: its
+    # value exact) and half the other's (killed mid-sweep); at the
+    # crossover the same after a run without cutoffs, whose values set the
+    # cutoffs; at L = 65536 one pair's run without cutoffs.
     al, bl, wl, cutl = long_recs["dtw_band_cuda"].args[:4]
     Pl, Ll = al.shape
     check(k5_form(Ll, wl) == "rows",
@@ -4436,70 +5202,90 @@ def kernel_phases(torch, dev, recs, windows, sk_index, sk_queries,
         lambda: ref.dtw_band_ref(al, bl, wl, cutl))
     err5 = compare("dtw_band_stream (largest long-path round, its cutoffs)",
                    k5_round_cut, plain_round_cut, exact=True)
-    plain_round, plain_round_ms = timed(lambda: ref.dtw_band_ref(al, bl, wl))
-    err5 = max(err5, compare("dtw_band_stream (largest long-path round)",
-                             dtw_band_cuda(al, bl, wl, stream=True),
-                             plain_round, exact=True))
     sa, sb, sc = long_recs["dtw_band_cuda"].sample
     err5 = max(err5, compare(
         "dtw_band_stream (long-path round pairs, cutoffs)",
         dtw_band_cuda(sa, sb, wl, sc, stream=True),
         ref.dtw_band_ref(sa, sb, wl, sc), exact=True))
+
+    def spare_and_kill(L: int, label: str, forms, clusters=(),
+                       plain_values: bool = False) -> dict:
+        """Two pairs of length L, w = L: the default form's values (with
+        ``plain_values``, held against a plain run without cutoffs, whose
+        values then set the cutoffs), then one plain run with cutoffs that
+        spare pair 0 and kill pair 1; every form in ``forms`` (and the
+        cluster form in ``clusters`` blocks) with those cutoffs bit-equal
+        to it, and with none bit-equal to the default form.  Returns the
+        default form's and the plain version's ms and the largest
+        difference."""
+        xa, xb = randn(2, L), randn(2, L)
+        got, ms = timed(lambda: dtw_band_cuda(xa, xb, L, stream=True))
+        vals = got
+        if plain_values:
+            vals = ref.dtw_band_ref(xa, xb, L)
+            compare(f"dtw_band_stream {label} (no cutoff)", got, vals,
+                    exact=True)
+        cut = torch.stack([vals[0] * 2, vals[1] * 0.5])
+        want, plain_ms = timed(lambda: ref.dtw_band_ref(xa, xb, L, cut))
+        check(bool(torch.isfinite(want[0])) and bool(torch.isposinf(want[1])),
+              f"dtw_band_stream {label}: the cutoffs do not spare pair 0 and "
+              "kill pair 1")
+        err = compare(f"dtw_band_stream {label} (spared pair)", got[:1],
+                      want[:1], exact=True)
+        runs = [dict(form=f) for f in forms] + [dict(cluster=n)
+                                                for n in clusters]
+        for kw in runs:
+            name = f"dtw_band_stream {label} {kw}"
+            compare(f"{name} (cutoffs)", dtw_band_cuda(
+                xa, xb, L, cut, stream=True, **kw), want, exact=True)
+            compare(name, dtw_band_cuda(xa, xb, L, stream=True, **kw), got,
+                    exact=True)
+        return {"ms": ms, "plain_ms": plain_ms, "err": err}
+
     Lx = 14465                                      # wb = 14464, w = L
     check(dtw_band_route(Lx, Lx) == "stream"
           and dtw_band_route(Lx - 1, Lx - 1) == "resident",
           "the K4/K5 crossover is not at wb = 14463/14464")
-    xa, xb = randn(2, Lx), randn(2, Lx)
-    exact_x = ref.dtw_band_ref(xa, xb, Lx)
-    cut_x = torch.stack([exact_x[0] * 2, exact_x[1] * 0.5])
-    plain_x_cut = ref.dtw_band_ref(xa, xb, Lx, cut_x)
-    for form in K5_FORMS:
-        compare(f"dtw_band_stream {form} just over the crossover",
-                dtw_band_cuda(xa, xb, Lx, stream=True, form=form), exact_x,
-                exact=True)
-        compare(f"dtw_band_stream {form} just over the crossover (cutoffs)",
-                dtw_band_cuda(xa, xb, Lx, cut_x, stream=True, form=form),
-                plain_x_cut, exact=True)
+    err5 = max(err5, spare_and_kill(Lx, "just over the crossover",
+                                    K5_FORMS, plain_values=True)["err"])
     # the (a)/(b) edge: L = 20480 is the longest series form (a) holds
-    edge = {}
-    for Le, form in ((K5_ROWS_MAX_L, "rows"), (K5_ROWS_MAX_L + 1, "cluster")):
-        check(k5_form(Le, Le) == form, f"k5_form({Le}, {Le}) is not {form}")
-        ea, eb = randn(2, Le), randn(2, Le)
-        exact_e = ref.dtw_band_ref(ea, eb, Le)
-        cut_e = torch.stack([exact_e[0] * 2, exact_e[1] * 0.5])
-        got_e, edge[f"L{Le}_{form}_two_pairs_ms"] = timed(
-            lambda: dtw_band_cuda(ea, eb, Le, stream=True))
-        compare(f"dtw_band_stream at the (a)/(b) edge, L={Le} ({form})",
-                got_e, exact_e, exact=True)
-        compare(f"dtw_band_stream at the (a)/(b) edge, L={Le} ({form}, "
-                "cutoffs)", dtw_band_cuda(ea, eb, Le, cut_e, stream=True),
-                ref.dtw_band_ref(ea, eb, Le, cut_e), exact=True)
-    # L = 65536, w = L: 524 KB of band state, a cluster of 3 blocks a pair
+    check(k5_form(K5_ROWS_MAX_L, K5_ROWS_MAX_L) == "rows"
+          and k5_form(K5_ROWS_MAX_L + 1, K5_ROWS_MAX_L + 1) == "cluster",
+          f"the (a)/(b) edge is not at L = {K5_ROWS_MAX_L}")
+    edge_a = spare_and_kill(K5_ROWS_MAX_L, f"at the (a)/(b) edge, "
+                            f"L={K5_ROWS_MAX_L} (rows)", ("rows",))
+    err5 = max(err5, edge_a["err"])
+    Le = K5_ROWS_MAX_L + 1
+    edge_b = spare_and_kill(Le, f"past the (a)/(b) edge, L={Le} (cluster)",
+                            ("cluster", "scratch"), (3, 4, K5_MAX_CLUSTER))
+    err5b = max(edge_b["err"], compare(
+        "dtw_band_stream_cluster (largest long-path round, forced, cutoffs)",
+        dtw_band_cuda(al, bl, wl, cutl, stream=True, form="cluster"),
+        plain_round_cut, exact=True))
+    edge = {f"L{K5_ROWS_MAX_L}_rows_two_pairs_ms": edge_a["ms"],
+            f"L{Le}_cluster_two_pairs_ms": edge_b["ms"]}
+    # L = 65536, w = L: 524 KB of band state, the cluster form's 3 blocks a
+    # pair, timed on two pairs in 3, 4 and 8 blocks and in the scratch
+    # form, each held against the plain version on pair 0
     L65 = 65536
     check(k5_form(L65, L65) == "cluster", "L = 65536 is not K5's form (b)")
     xa, xb = randn(2, L65), randn(2, L65)
-    got65, k5_65536_ms = timed(lambda: dtw_band_cuda(xa, xb, L65,
-                                                     stream=True))
-    plain65, plain65_ms = timed(lambda: ref.dtw_band_ref(xa, xb, L65))
-    err5b = compare("dtw_band_stream_cluster L=65536 w=L", got65, plain65,
-                    exact=True)
-    err5b = max(err5b, compare(
-        "dtw_band_stream_cluster (largest long-path round, forced)",
-        dtw_band_cuda(al, bl, wl, stream=True, form="cluster"), plain_round,
-        exact=True))
-    # the same pairs in larger clusters, and in the scratch form, the one
-    # form (b) is chosen over past L = 20480
+    plain65, plain65_ms = timed(lambda: ref.dtw_band_ref(xa[:1], xb[:1],
+                                                         L65))
     n65 = k5_cluster_size(L65, L65)
-    by_blocks = {n65: k5_65536_ms}
-    for n in (4, K5_MAX_CLUSTER):
+    by_blocks = {}
+    for n in (n65, 4, K5_MAX_CLUSTER):
         got_n, by_blocks[n] = timed(lambda: dtw_band_cuda(
             xa, xb, L65, stream=True, cluster=n))
-        err5b = max(err5b, compare(f"dtw_band_stream_cluster L=65536 w=L, "
-                                   f"{n} blocks", got_n, plain65, exact=True))
+        err65 = compare(f"dtw_band_stream_cluster L=65536 w=L, {n} blocks "
+                        "(pair 0)", got_n[:1], plain65, exact=True)
+    k5_65536_ms = by_blocks[n65]
     got65s, scratch65_ms = timed(lambda: dtw_band_cuda(
         xa, xb, L65, stream=True, form="scratch"))
-    compare("dtw_band_stream_scratch L=65536 w=L", got65s, plain65,
-            exact=True)
+    compare("dtw_band_stream_scratch L=65536 w=L (pair 0)", got65s[:1],
+            plain65, exact=True)
+    compare(f"dtw_band_stream_scratch L=65536 w=L against the cluster "
+            f"form's {K5_MAX_CLUSTER} blocks", got65s, got_n, exact=True)
     # the widest slices form (b) takes: wb = 231423 over 8 blocks of
     # K5_BLOCK_FLOATS floats (231,424 B each).  Every cell costs > 0, so
     # with a cutoff of 0 the plain version's first row-block check (R = 64)
@@ -4519,12 +5305,14 @@ def kernel_phases(torch, dev, recs, windows, sk_index, sk_queries,
     bms, by = bound(8.0 * Pl * Ll + 8.0 * Pl, 5.0 * band_cells(Ll, wl) * Pl)
     k5_ms = time_ms(lambda: dtw_band_cuda(al, bl, wl, stream=True), 3,
                     warmup=1)
+    plain_note = ("the plain version's sweep of the round with its cutoffs "
+                  "(it runs every anti-diagonal, with cutoffs or without)")
     out.append(dict(
         name="dtw_band_stream", route="cuda",
         source="src/repro_torch/csrc/dtw_band_stream.cu",
         replaces="src/repro/kernels/dtw_band.py:410",
         **path_launches("dtw_band_stream"), max_abs_err=err5,
-        ms=k5_ms, plain_ms=plain_round_ms,
+        ms=k5_ms, plain_ms=plain_round_cut_ms, plain_shape=plain_note,
         bound_ms=bms, bound_by=by, library_ms=None,
         form="(a) rows: one block of 512 threads a pair, each thread's "
              "rows in registers, K anti-diagonals a step",
@@ -4533,22 +5321,20 @@ def kernel_phases(torch, dev, recs, windows, sk_index, sk_queries,
         round_cutoffs_ms=time_ms(
             lambda: dtw_band_cuda(al, bl, wl, cutl, stream=True), 3,
             warmup=1),
-        round_cutoffs_plain_ms=plain_round_cut_ms,
         L65536_two_pairs_ms=k5_65536_ms, **edge))
-    bms65, by65 = bound(8.0 * 2 * L65 + 8.0 * 2,
-                        5.0 * band_cells(L65, L65) * 2)
+    bms_e, by_e = bound(8.0 * 2 * Le + 8.0 * 2, 5.0 * band_cells(Le, Le) * 2)
     out.append(dict(
         name="dtw_band_stream_cluster", route="cuda",
         source="src/repro_torch/csrc/dtw_band_stream.cu",
         replaces="src/repro/kernels/dtw_band.py:410",
         **path_launches("dtw_band_stream_cluster"), max_abs_err=err5b,
-        ms=time_ms(lambda: dtw_band_cuda(xa, xb, L65, stream=True), 1,
-                   warmup=0),
-        plain_ms=plain65_ms, bound_ms=bms65, bound_by=by65, library_ms=None,
-        form=f"(b) cluster: {k5_cluster_size(L65, L65)} blocks a pair, "
-             "the buffer in slices, the slice edges through distributed "
-             "shared memory",
-        shape=f"P=2 L={L65} w={L65} no cutoff",
+        ms=edge_b["ms"], plain_ms=edge_b["plain_ms"], bound_ms=bms_e,
+        bound_by=by_e, library_ms=None,
+        form=f"(b) cluster: {k5_cluster_size(Le, Le)} blocks a pair past "
+             f"the edge, {n65} at L = {L65}, the buffer in slices, the "
+             "slice edges through distributed shared memory",
+        shape=f"P=2 L={Le} w={Le} no cutoff (its plain run with cutoffs "
+              "that spare one pair and kill the other)",
         # the one-buffer design on the round form (a) runs (2 blocks a
         # pair there), against which form (a) was chosen
         round_ms=time_ms(lambda: dtw_band_cuda(al, bl, wl, stream=True,
@@ -4557,13 +5343,14 @@ def kernel_phases(torch, dev, recs, windows, sk_index, sk_queries,
                     f"{k5_cluster_size(Ll, wl)} blocks a pair",
         L65536_two_pairs_ms_by_blocks=by_blocks,
         L65536_two_pairs_scratch_ms=scratch65_ms,
+        L65536_one_pair_plain_ms=plain65_ms, L65536_max_abs_err=err65,
         widest_shape=f"P=2 L={Lw} w={Lw}, {K5_MAX_CLUSTER} blocks of "
                      f"{4 * K5_BLOCK_FLOATS} B, cutoff 0, row_block 64",
         widest_abandon_ms=widest_ms))
     err5c = compare(
-        "dtw_band_stream_scratch (largest long-path round)",
-        dtw_band_cuda(al, bl, wl, stream=True, form="scratch"), plain_round,
-        exact=True)
+        "dtw_band_stream_scratch (largest long-path round, its cutoffs)",
+        dtw_band_cuda(al, bl, wl, cutl, stream=True, form="scratch"),
+        plain_round_cut, exact=True)
     out.append(dict(
         name="dtw_band_stream_scratch", route="cuda",
         source="src/repro_torch/csrc/dtw_band_stream.cu",
@@ -4571,7 +5358,8 @@ def kernel_phases(torch, dev, recs, windows, sk_index, sk_queries,
         **path_launches("dtw_band_stream_scratch"), max_abs_err=err5c,
         ms=time_ms(lambda: dtw_band_cuda(al, bl, wl, stream=True,
                                          form="scratch"), 1, warmup=0),
-        plain_ms=plain_round_ms, bound_ms=bms, bound_by=by, library_ms=None,
+        plain_ms=plain_round_cut_ms, plain_shape=plain_note, bound_ms=bms,
+        bound_by=by, library_ms=None,
         form="(c) scratch: a persistent grid, band state in device "
              "memory (forced here; a path takes it past wb = 231423)",
         shape=f"P={Pl} L={Ll} w={wl} no cutoff (the long path's largest "
@@ -4798,12 +5586,6 @@ def lm_kernel_phases(torch, dev, windows, lm_recs, ptxas):
                        ref.flash_attention_ref(*xs, True, 32, 50.0))
         repaired[label] = r["max_abs_err"] if dts == "float32" else \
             r["rel_rms_err"]
-
-    def k9_bound(q, k, causal, window):
-        B9, Sq9, Hq9, D9 = q.shape
-        pairs = attn_pairs(Sq9, k.shape[1], causal, window)
-        nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-        return bound(nbytes, 4.0 * B9 * Hq9 * D9 * pairs, PEAK_BF16)
 
     bms, by = k9_bound(qg, kg, cg, wg9)
     qt, kt, vt = (x.transpose(1, 2) for x in (qg, kg, vg))
@@ -5057,10 +5839,7 @@ def lm_kernel_phases(torch, dev, windows, lm_recs, ptxas):
               randn(Bs_, S_, N_), randn(Bs_, S_, N_), randn(Bs_, C_, N_))
         compare(f"mamba_scan sweep {(Bs_, S_, C_, N_)}", mamba_scan_cuda(*sw),
                 ref.mamba_scan_ref(*sw), exact=True)
-    # inputs and outputs once: delta, u, B, C rows, y; A, h0, hT
-    bms, by = bound(4.0 * (Bs * S * (2 * C + 2 * N) + Bs * S * C + C * N
-                           + 2 * Bs * C * N),
-                    7.0 * Bs * S * C * N + Bs * S * C)
+    bms, by = scan_bound(Bs, S, C, N)
     # the SFU's share: one ex2 per (b, t, c, n) at 16 a clock per SM, at
     # the card's maximum SM clock (not counted in the bound)
     props = torch.cuda.get_device_properties(dev)
@@ -5113,9 +5892,7 @@ def lm_kernel_phases(torch, dev, windows, lm_recs, ptxas):
     errw = compare(f"mamba_scan_wide B={Bw} S={Sw} C={Cw} N={Nw}", got,
                    want, exact=True)
     del got, want
-    bmsw, byw = bound(4.0 * (Bw * Sw * (2 * Cw + 2 * Nw) + Bw * Sw * Cw
-                             + Cw * Nw + 2 * Bw * Cw * Nw),
-                      7.0 * Bw * Sw * Cw * Nw + Bw * Sw * Cw)
+    bmsw, byw = scan_bound(Bw, Sw, Cw, Nw)
     out.append(dict(
         name="mamba_scan_wide", route="cuda",
         source="src/repro_torch/csrc/mamba_scan.cu",
@@ -5137,6 +5914,12 @@ def lm_kernel_phases(torch, dev, windows, lm_recs, ptxas):
 
 
 def main() -> int:
+    # the shapes phase and train-moe hold ~90 % of the card in tensors of
+    # many sizes: with fixed segments the caching allocator's free pieces
+    # left a 7.3 GiB request unserved beside 13.9 GiB reserved and unused
+    # (gemma2-2b prefill_32k at B = 13); segments that grow in place keep
+    # what is reserved near what is allocated
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     try:
         import torch
     except ImportError:
@@ -5155,14 +5938,17 @@ def main() -> int:
     import torch.distributed as dist
 
     phases = {}
+    sizing = None
 
     def phase(name: str) -> None:
         phases[name] = round(time.perf_counter() - t_start, 1)
 
     profile = "--profile" in sys.argv[1:]
     lm_only = "--lm-only" in sys.argv[1:]
+    shapes_only = "--shapes-only" in sys.argv[1:]
     paper_tmp = Path(tempfile.mkdtemp(prefix="paper_data_"))
-    paper_proc = None if lm_only else start_paper_data(paper_tmp)
+    paper_proc = (None if lm_only or shapes_only
+                  else start_paper_data(paper_tmp))
     try:
         line = card_line()
         print(line)
@@ -5192,6 +5978,17 @@ def main() -> int:
             phase("lm families")
             print("phase seconds (cumulative): " + json.dumps(phases))
             print("chip_smoke --lm-only: every LM request passed its checks")
+            return 0
+        if shapes_only:
+            sizing = start_sizing(torch)
+            run_train_path(torch, dev, profile, labels=SIZING_TASKS[:1],
+                           sizing=sizing)
+            phase("train-moe")
+            run_shapes_phase(torch, dev, profile, sizing)
+            phase("shapes")
+            print("phase seconds (cumulative): " + json.dumps(phases))
+            print("chip_smoke --shapes-only: every shape cell passed its "
+                  "checks")
             return 0
         ds, index, cfg, res, launches, recs = run_main_path(torch, dev)
         for kname in ("envelope", "lb_enhanced", "lb_enhanced_pairwise",
@@ -5243,6 +6040,10 @@ def main() -> int:
         del ds, index, res, recs, lg_ds, lg_index, lg_recs, wd_recs, dn_recs
         gc.collect()
         torch.cuda.empty_cache()
+        # the train-moe and shapes cells' sizing, on the host beside the
+        # LM and train phases: what is resident now is what those cells
+        # will find (each phase frees what it draws)
+        sizing = start_sizing(torch)
         readings = {}
         lm_windows, lm_recs = run_lm_phase(torch, dev, profile, readings)
         phase("lm phase")
@@ -5257,7 +6058,8 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         phase("lm kernels")
-        tr_launches, tr_warm = run_train_path(torch, dev, profile, readings)
+        tr_launches, tr_warm = run_train_path(torch, dev, profile, readings,
+                                              sizing=sizing)
         for rec in kernels:
             if rec["name"] in LM_KERNELS:
                 rec["train_path_launches"] = tr_launches[rec["name"]]
@@ -5270,6 +6072,22 @@ def main() -> int:
         # default group while it lasts
         run_dryrun_phase(torch, readings)
         phase("dryrun")
+        gc.collect()
+        torch.cuda.empty_cache()
+        sp_launches, sp_recs = run_shapes_phase(torch, dev, profile, sizing)
+        sizing["pool"].shutdown()
+        sizing = None
+        for rec in kernels:
+            if rec["name"] in LM_KERNELS:
+                rec["shapes_path_launches"] = sp_launches[rec["name"]]
+                rec["launches"] += sp_launches[rec["name"]]
+                if rec["name"] in sp_recs:
+                    rec["shapes"] = sp_recs[rec["name"]]
+        check(sum(sp_launches[k] for k in sp_launches
+                  if k not in LM_KERNELS) == 0,
+              f"shapes phase: a search kernel launched: {sp_launches}")
+        del sp_recs
+        phase("shapes")
         # the distributed paths come after every device_ms measurement:
         # a short profiler session after the paper path saw no kernel
         # (four calls on the H100 machine, with the sessions primed and
@@ -5328,6 +6146,8 @@ def main() -> int:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
     finally:
+        if sizing is not None:
+            sizing["pool"].shutdown(cancel_futures=True)
         if paper_proc is not None:
             if paper_proc.poll() is None:
                 paper_proc.kill()

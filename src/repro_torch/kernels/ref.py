@@ -146,6 +146,11 @@ def dtw_band_ref(a: Tensor, b: Tensor, w: int | None = None,
     return dtw_band_blocked(a, b, w, cutoff, row_block=row_block)
 
 
+# the plain selective scan's chunk: at most this many steps, and about
+# this many bytes a (T, B, C, N) tensor
+_SCAN_CHUNK_STEPS = 4096
+_SCAN_CHUNK_BYTES = 1 << 30
+
 # large negative for masking in f32 (finite, as in the JAX package)
 _NEG = -2.3819763e38
 
@@ -219,16 +224,33 @@ def mamba_scan_ref(delta: Tensor, u: Tensor, A: Tensor, Bmat: Tensor,
     runs ``n = 0 .. N-1`` as ``acc + h_n C_n``, each product and sum
     rounded on its own; the selective-scan kernel (csrc/mamba_scan.cu)
     does the same, so the two agree bit for bit where their ``exp``s do.
+    Only the recurrence runs step by step: ``exp(d A)``, ``(d u) B`` and
+    the N-sum are the same elementwise operations taken over a chunk of
+    steps at once (``_SCAN_CHUNK_STEPS`` steps, fewer where a chunk's
+    ``(T, B, C, N)`` tensors would pass ``_SCAN_CHUNK_BYTES``), so a step
+    costs two launches on the card.
     """
     Bsz, S, C = delta.shape
+    N = A.shape[1]
     h = h0.float()
     y = torch.empty((Bsz, S, C), dtype=delta.dtype, device=delta.device)
-    for t in range(S):
-        dt = delta[:, t]                                         # (B, C)
-        a = torch.exp(dt[:, :, None] * A)                        # (B, C, N)
-        h = a * h + (dt * u[:, t])[:, :, None] * Bmat[:, t, None, :]
-        acc = torch.zeros_like(dt)
-        for n in range(A.shape[1]):
-            acc = acc + h[:, :, n] * Cmat[:, t, n, None]
-        y[:, t] = acc
+    T = max(1, min(S, _SCAN_CHUNK_STEPS,
+                   _SCAN_CHUNK_BYTES // max(1, 4 * Bsz * C * N)))
+    for s0 in range(0, S, T):
+        def steps(x):                                    # (T, B, ...)
+            return x[:, s0:s0 + T].transpose(0, 1).contiguous()
+
+        d = steps(delta)                                 # (T, B, C)
+        a = torch.exp(d[..., None] * A)                  # (T, B, C, N)
+        bx = (d * steps(u))[..., None] * steps(Bmat)[:, :, None, :]
+        hs = []
+        for a_t, bx_t in zip(a.unbind(0), bx.unbind(0)):
+            h = a_t * h + bx_t
+            hs.append(h)
+        hs = torch.stack(hs)
+        cm = steps(Cmat)                                 # (T, B, N)
+        acc = torch.zeros_like(d)
+        for n in range(N):
+            acc = acc + hs[..., n] * cm[..., n, None]
+        y[:, s0:s0 + T] = acc.transpose(0, 1)
     return y, h.to(h0.dtype)

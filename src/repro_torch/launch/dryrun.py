@@ -191,14 +191,18 @@ def build_cell(cfg: ArchConfig, shape: ShapeConfig, mesh, rules: AxisRules,
                *, seq: int | None = None, probe: bool = False,
                opt_cfg: OptConfig | None = None,
                attn_bypass: bool = ATTN_PALLAS,
-               ssm_bypass: bool = SSM_PALLAS) -> Cell:
+               ssm_bypass: bool = SSM_PALLAS,
+               params_dtype: torch.dtype | None = None) -> Cell:
     """The cell's step on ``mesh`` (the reference's ``build_lowered``).
     ``probe=True`` makes every chunk the full length and turns remat off,
     so each layer is one trace of each op; probes are for costs only.
     ``opt_cfg`` is the train step's optimizer (default
     ``opt_config_for(cfg)``; a depth probe passes its full model's).
     ``attn_bypass`` / ``ssm_bypass`` trace the ``"bypass"`` stand-ins where
-    the card runs K9 / K10 (not in a decode step, which runs neither)."""
+    the card runs K9 / K10 (not in a decode step, which runs neither).
+    ``params_dtype`` holds a prefill's or decode step's parameters at rest
+    in that dtype, as ``LM.init(dtype=...)`` draws a served tree (default
+    f32, the reference's); the train state stays f32."""
     seq = seq if seq is not None else shape.seq_len
     decode = shape.kind == "decode"
     ssm_impl = "bypass" if ssm_bypass and not decode else "scan"
@@ -220,7 +224,7 @@ def build_cell(cfg: ArchConfig, shape: ShapeConfig, mesh, rules: AxisRules,
         step = make_train_step(model, opt_cfg)
         return Cell(args=(state, batch), run=lambda: step(state, batch),
                     scalars=SCALAR_BYTES)
-    params = model.init(device=META)
+    params = model.init(device=META, dtype=params_dtype)
     serve = SERVE_SHARDING and decode
     if serve:
         # serving checkpoints are bf16 at rest (the >=2-D f32 leaves, as
@@ -317,6 +321,77 @@ def peak_memory(cfg: ArchConfig, shape: ShapeConfig, mesh, rules: AxisRules,
         + (0.0 if depth_probes else m["trace_s"]),
         "depth": "probes" if depth_probes else "full",
     }
+
+
+# ---------------------------------------------------------------------------
+# sizing a cell to one card
+# ---------------------------------------------------------------------------
+
+def fit_largest(peak_of: Callable[[int], float], hi: int,
+                budget: float) -> int:
+    """The largest n in [1, hi] with ``peak_of(n) <= budget``, 0 when even
+    n = 1 is over, by bisection; ``peak_of`` is taken as non-decreasing in
+    n (a batch or a depth), level stretches included."""
+    if peak_of(1) > budget:
+        return 0
+    lo = 1
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if peak_of(mid) <= budget:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+def fit_cell(cfg: ArchConfig, shape: ShapeConfig, budget: float, mesh,
+             rules: AxisRules, *, vary: str = "batch",
+             **cell_kw) -> dict[str, Any]:
+    """Size one cell by ``peak_memory`` on ``mesh`` (a (1, 1) mesh of
+    ``fake_world(1)``, which must be up): ``vary="batch"``, the largest
+    batch up to the shape's whose predicted peak is within ``budget``
+    bytes; ``"seq"``, batch 1 at the shape's length, halved while over;
+    ``"depth"``, the largest depth up to the config's that fits at batch
+    1, then the largest batch at that depth.  ``cell_kw`` goes to
+    ``peak_memory``.  Returns ``{"fits", "cfg", "shape"}`` (the sized
+    config and shape), ``"predicted_peak"`` (at the pick; where nothing
+    fits, at batch 1 of the smallest case tried), ``"cut"``
+    (``{"B": "32 -> 9", ...}``), the ``"traces"`` taken and
+    ``"sizing_s"``.  The peak is the bytes the step allocates; what the
+    caching allocator reserves for them is not in it."""
+    t0 = time.perf_counter()
+    memo: dict[tuple[int, int, int], int] = {}
+
+    def peak(n_layers: int, B: int, S: int) -> int:
+        if (n_layers, B, S) not in memo:
+            c = dataclasses.replace(cfg, n_layers=n_layers)
+            sh = dataclasses.replace(shape, global_batch=B, seq_len=S)
+            memo[n_layers, B, S] = peak_memory(c, sh, mesh, rules,
+                                               **cell_kw)["peak_bytes"]
+        return memo[n_layers, B, S]
+
+    L, S = cfg.n_layers, shape.seq_len
+    if vary == "seq":
+        while S > 1 and peak(L, 1, S) > budget:
+            S //= 2
+        B = int(peak(L, 1, S) <= budget)
+    else:
+        if vary == "depth":
+            L = fit_largest(lambda n: peak(n, 1, S), cfg.n_layers,
+                            budget) or 1
+        B = fit_largest(lambda b: peak(L, b, S), shape.global_batch, budget)
+    cut = {"B": f"{shape.global_batch} -> {B}"}
+    if S != shape.seq_len:
+        cut["S"] = f"{shape.seq_len} -> {S}"
+    if L != cfg.n_layers:
+        cut["n_layers"] = f"{cfg.n_layers} -> {L}"
+    return {"fits": B > 0, "cfg": dataclasses.replace(cfg, n_layers=L),
+            "shape": dataclasses.replace(shape, global_batch=max(B, 1),
+                                         seq_len=S),
+            "predicted_peak": peak(L, max(B, 1), S), "cut": cut,
+            "traces": [{"n_layers": k[0], "B": k[1], "S": k[2], "peak": v}
+                       for k, v in memo.items()],
+            "sizing_s": time.perf_counter() - t0}
 
 
 # ---------------------------------------------------------------------------

@@ -1298,3 +1298,81 @@ def test_dryrun_state_bytes_equal_the_cards(dev):
         pred = dryrun.local_bytes((cell.args[0].params, cell.args[0].opt))
     assert dryrun.opt_config_for(cfg).name == OptConfig().name == "adamw"
     assert pred == card
+
+
+@pytest.mark.parametrize("window", [4096, None])
+def test_flash_attention_at_32768(dev, window):
+    """K9's bf16 form at gemma2-2b's prefill_32k length on one (batch row,
+    head) slice (Hq = Hkv = 1, D = 256, cap 50), a local layer's window of
+    4096 and a global layer's, against its plain version to the bf16
+    tolerance (rtol 1e-2, atol 1e-2) and a relative RMS error of 1e-2."""
+    S, D = 32768, 256
+    q, k, v = (_rand(dev, 60 + i, 1, S, 1, D).to(torch.bfloat16)
+               for i in range(3))
+    _build.reset_counts()
+    got = flash_attention_cuda(q, k, v, True, window, 50.0)
+    assert _build.counts()["flash_attention"] == 1
+    want = ref.flash_attention_ref(q, k, v, True, window, 50.0)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                               atol=1e-2)
+    rel = ((got.float() - want.float()).square().mean().sqrt()
+           / want.float().square().mean().sqrt()).item()
+    assert rel <= 1e-2
+
+
+def test_mamba_scan_at_524288_bit_equal(dev):
+    """K10 at long_500k's length, S = 524288, on 64 channels (N = 16):
+    bit-equal to its plain version, y and the final state."""
+    args = _mamba_args(dev, 1, 524288, 64, 16)
+    y, h = mamba_scan_cuda(*args)
+    ry, rh = ref.mamba_scan_ref(*args)
+    assert torch.equal(y, ry) and torch.equal(h, rh)
+
+
+def test_sizing_predicts_the_train_moe_steps_peak(dev):
+    """``launch.dryrun.fit_cell``'s sizing of qwen2-moe-a2.7b's
+    ``train_4k`` (train-moe: depth, then batch, on a one-rank fake world)
+    within half the card: one step at that size on the card (bf16, remat,
+    K9, the optimizer the dry-run traced) peaks at most 1 / 0.95 of the
+    prediction (``chip_smoke.py``'s ``DRYRUN_PEAK_MIN``) above what was
+    resident, and the predicted state bytes are the card's."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.data import TokenPipeline
+    from repro_torch.distributed.sharding import AxisRules
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import LM
+    from repro_torch.train import init_state, make_train_step
+    from repro_torch.tree import tensors
+
+    cfg, shape = ARCHS["qwen2-moe-a2.7b"], SHAPES["train_4k"]
+    resident = torch.cuda.memory_allocated()
+    budget = 0.5 * torch.cuda.mem_get_info()[1] - resident
+    with dryrun.fake_world(1):
+        mesh = make_host_mesh((1, 1), ("data", "model"), device_type="meta")
+        rules = AxisRules.for_mesh(mesh)
+        sz = dryrun.fit_cell(cfg, shape, budget, mesh, rules,
+                             vary="depth")
+        assert sz["fits"] and sz["predicted_peak"] <= budget
+        cell = dryrun.build_cell(sz["cfg"], sz["shape"], mesh, rules)
+        pred_state = dryrun.local_bytes((cell.args[0].params,
+                                         cell.args[0].opt))
+        del cell
+    model = LM(sz["cfg"], attn_impl="kernel")
+    opt = dryrun.opt_config_for(cfg)
+    state = init_state(model, torch.Generator(device=dev).manual_seed(0),
+                       opt)
+    assert sum(t.nbytes for t in tensors((state.params, state.opt))) \
+        == pred_state
+    batch = TokenPipeline(sz["cfg"].vocab, sz["shape"].global_batch,
+                          shape.seq_len, seed=0).next_batch()
+    step = make_train_step(model, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_counts()
+    state, metrics = step(state, batch)
+    assert np.isfinite(metrics["loss"].item())
+    card = torch.cuda.max_memory_allocated() - resident
+    assert _build.counts()["flash_attention"] == 2 * sz["cfg"].n_layers
+    assert sz["predicted_peak"] >= 0.95 * card
